@@ -1,9 +1,8 @@
-"""TPU-native differential dynamic programming / iLQG framework.
+"""Differential dynamic programming / iLQG for fleets of problems on a GPU.
 
 A from-scratch JAX/XLA/Pallas re-design with the full capability set of the
 reference Julia package ``baggepinnen/DifferentialDynamicProgramming.jl``
-(mounted at /root/reference; public API at
-``src/DifferentialDynamicProgramming.jl:6``):
+(public API at ``src/DifferentialDynamicProgramming.jl:6``):
 
 - :func:`ilqg` — iLQG/DDP solver (reference ``iLQG``, ``src/iLQG.jl:143``)
 - :func:`ilqg_kl` — KL-constrained trust-region variant (reference
@@ -16,7 +15,8 @@ reference Julia package ``baggepinnen/DifferentialDynamicProgramming.jl``
 - batched + multi-host execution: :mod:`.parallel`
 
 Everything is jittable, vmappable over scenario batches, and shardable over
-TPU device meshes.
+device meshes. The fleet fast path (the lane tier) runs Pallas kernels
+compiled through Triton on a CUDA GPU; the XLA tier runs anywhere.
 """
 
 from .policy import GaussianPolicy, Trace, Derivs, sym

@@ -59,7 +59,7 @@ def make_pendcart_problem(spec: PendCartSpec = PendCartSpec(),
       - ``"zoh"`` — the reference's scheme: analytic continuous Jacobians,
         zero-order-hold discretized per timestep via a 5×5 matrix exponential
         (``src/system_pendcart.jl:137-154``), vmapped over T.
-      - ``"autodiff"`` — TPU-native default-style: exact Jacobians of the
+      - ``"autodiff"`` — the default style: exact Jacobians of the
         Euler step by jacfwd. (The reference mixes Euler rollout with ZoH
         derivatives; autodiff is self-consistent and converges comparably.)
       - ``"euler"`` — hand-written exact Jacobians of the Euler step (same
@@ -123,7 +123,7 @@ def make_pendcart_problem(spec: PendCartSpec = PendCartSpec(),
     elif derivs == "euler":
         def deriv_fn(x_traj, u_traj):
             """Exact Jacobians of the Euler step, written elementwise so the
-            whole derivative stack is a handful of fused VPU ops per
+            whole derivative stack is a handful of fused elementwise ops per
             trajectory point (no per-step matrix construction)."""
             T = u_traj.shape[0]
             th = x_traj[:T, 0]
@@ -161,7 +161,7 @@ def make_pendcart_problem(spec: PendCartSpec = PendCartSpec(),
 @functools.lru_cache(maxsize=32)
 def pendcart_lanes(spec: PendCartSpec = PendCartSpec()):
     """Lane-tile model for the Pallas forward kernel: dynamics/cost on lists
-    of (8, 128) tiles (one per state/control dim). Same math as
+    of lane tiles (one per state/control dim). Same math as
     :func:`make_pendcart_problem` (Euler step + diagonal quadratic cost +
     terminal evaluation, ``src/system_pendcart.jl:75-106``)."""
     from ..ops.pallas.forward_kernel import LanesModel

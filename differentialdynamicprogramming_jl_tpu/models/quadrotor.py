@@ -56,7 +56,7 @@ class QuadrotorSpec:
 
 def _step_scalars(spec: QuadrotorSpec, x, u):
     """One Euler step on per-dimension scalars/tiles (shared by both tiers —
-    elementwise, so it broadcasts identically over jnp vectors and (8, 128)
+    elementwise, so it broadcasts identically over jnp vectors and
     lane tiles)."""
     px, vx, pz, vz, th, om = x
     u1, u2 = u

@@ -29,6 +29,7 @@ from jax.scipy.linalg import cho_solve
 
 from ..policy import Derivs, GaussianPolicy, sym
 from .boxqp import boxqp, boxqp_1d
+from .precision import highest_precision
 
 
 class KLTerms(NamedTuple):
@@ -55,6 +56,7 @@ class BackwardOut(NamedTuple):
     dV: jax.Array            # (2,) expected cost reduction [linear, quadratic]
 
 
+@highest_precision
 @functools.partial(
     jax.jit,
     static_argnames=("reg_type", "use_limits", "qp_max_iter", "gps_mode"))

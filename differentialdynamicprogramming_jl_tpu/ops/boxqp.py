@@ -1,4 +1,4 @@
-"""Box-constrained QP via projected Newton — TPU-native re-design.
+"""Box-constrained QP via projected Newton — a jittable re-design.
 
 Minimize ``0.5*x'Hx + x'g`` s.t. ``lower <= x <= upper``.
 
@@ -6,7 +6,7 @@ Reference: ``src/boxQP.jl:29-188`` (clamped-set detection ``:88-95``,
 refactorize-on-clamp-change ``:103-117``, Newton step on free dims
 ``:126-129``, Armijo backtracking ``:137-151``, result codes ``:172-179``).
 
-Design differences (TPU-first, not a port):
+Design differences (accelerator-first, not a port):
 
 - **No dynamic shapes / index sets.** The active set is a boolean mask; the
   free-subspace Cholesky is the factorization of the *masked-identity-padded*
@@ -34,6 +34,7 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 from jax.scipy.linalg import cho_solve
+from .precision import highest_precision
 
 
 class BoxQPResult(NamedTuple):
@@ -96,6 +97,7 @@ def _masked_cholesky(H, free):
     return jnp.linalg.cholesky(Hm)
 
 
+@highest_precision
 @functools.partial(jax.jit,
                    static_argnames=("max_iter", "min_grad",
                                     "min_rel_improve", "step_dec", "min_step",

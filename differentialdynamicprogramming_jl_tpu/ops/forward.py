@@ -3,7 +3,7 @@
 Reference: ``forward_pass`` (``src/forward_pass.jl:9-33``) and
 ``forward_covariance`` (``src/forward_pass.jl:37-56``).
 
-TPU-native design: the per-timestep loop is a ``lax.scan`` with jittable user
+Design: the per-timestep loop is a ``lax.scan`` with jittable user
 dynamics; the serial backtracking line search of the reference
 (``src/iLQG.jl:266-281``) becomes a vmap over all α candidates evaluated in
 parallel, then a select of the *first* (largest-α) acceptable one — identical
@@ -19,6 +19,7 @@ from jax import lax
 
 from ..policy import GaussianPolicy
 from ..problem import Problem
+from .precision import highest_precision
 
 
 class Rollout(NamedTuple):
@@ -27,6 +28,7 @@ class Rollout(NamedTuple):
     cost: jax.Array   # (T,)  — per-step costs
 
 
+@highest_precision
 def forward_pass(problem: Problem,
                  x0: jax.Array,
                  u: jax.Array,
@@ -85,6 +87,7 @@ class LineSearchOut(NamedTuple):
     reduce_ratio: jax.Array
 
 
+@highest_precision
 def line_search(problem: Problem, x0, u, x_old, cost_old_total, policy,
                 dV, alphas, lims=None,
                 reduce_ratio_min=0.0) -> LineSearchOut:
@@ -116,6 +119,7 @@ def line_search(problem: Problem, x0, u, x_old, cost_old_total, policy,
         dcost=dcost[idx], expected=expected[idx], reduce_ratio=ratio[idx])
 
 
+@highest_precision
 def forward_covariance(fx: jax.Array, R1: jax.Array,
                        policy: GaussianPolicy) -> jax.Array:
     """Propagate the joint state-control covariance by a discrete Lyapunov

@@ -17,8 +17,10 @@ import jax.numpy as jnp
 
 from ..policy import GaussianPolicy
 from .backward import KLTerms
+from .precision import highest_precision
 
 
+@highest_precision
 def grad_kl(traj_prev: GaussianPolicy) -> KLTerms:
     """Q-term additions from the KL constraint w.r.t. the previous policy
     (``∇kl``, ``src/klutils.jl:8-23``):
@@ -51,6 +53,7 @@ def pd_ok(S: jax.Array) -> jax.Array:
     return jnp.linalg.eigvalsh(S)[..., 0] > 0
 
 
+@highest_precision
 def kl_div_wiki(x_new: jax.Array, x_old: jax.Array, sigma_new: jax.Array,
                 traj_new: GaussianPolicy,
                 traj_prev: GaussianPolicy) -> jax.Array:
@@ -84,6 +87,7 @@ def kl_div_wiki(x_new: jax.Array, x_old: jax.Array, sigma_new: jax.Array,
     return jnp.maximum(kl, 0.0)
 
 
+@highest_precision
 def kl_div_gaussian(x_new, x_old, u_new, sigma_new, traj_new, traj_prev):
     """The reference's alternative ``kl_div`` formulation
     (``src/klutils.jl:39-65``), which can go negative and is clipped; kept
@@ -116,6 +120,7 @@ def kl_div_gaussian(x_new, x_old, u_new, sigma_new, traj_new, traj_prev):
     return jnp.maximum(kl, 0.0)
 
 
+@highest_precision
 def entropy(traj: GaussianPolicy) -> jax.Array:
     """Mean policy entropy (``src/klutils.jl:104``)."""
     return (jnp.mean(_logdet(traj.sigma)) / 2.0

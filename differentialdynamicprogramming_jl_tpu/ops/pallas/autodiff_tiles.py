@@ -10,19 +10,20 @@ once (as elementwise scalar expressions over lane tiles — the same functions
 the forward kernel already requires) gets the full Pallas tier without any
 hand-written Jacobians.
 
-This is the TPU-native analogue of the reference making ``df`` optional:
+This is the lane-tier analogue of the reference making ``df`` optional:
 the reference requires hand-written derivatives (``src/iLQG.jl:77-84``);
 the XLA tier here autodiffs ``Problem`` functions (``problem.py``), and this
 module closes the same gap on the lane tier.
 
-Why this lowers to Mosaic safely: ``jax.jvp`` is a trace-time transform —
+Why this lowers through Triton safely: ``jax.jvp`` is a trace-time
+transform —
 the tangent program of elementwise tile arithmetic is again elementwise tile
 arithmetic, exactly the op set the hand-written tile functions use. One jvp
 per input dimension yields a Jacobian column (n+m jvps for fx/fu/cx/cu);
 forward-over-forward per direction pair yields the Hessian tiles
 ((n+m)(n+m+1)/2 double-jvps, mirrored by symmetry). At lane-tier sizes
-(n ≲ 12) this is a handful of extra fused VPU ops per step; the analytic
-generators remain the documented fast path when they exist.
+(n ≲ 12) this is a handful of extra fused elementwise ops per step; the
+analytic generators remain the documented fast path when they exist.
 
 Terminal-cost convention: identical to the hand-written generators — the
 boundary expansion differentiates the RUNNING cost at t = T-1 (the built-in

@@ -1,34 +1,33 @@
-"""Pallas TPU kernel for the batched backward pass (Riccati-like recursion).
+"""Pallas kernel (Triton route) for the batched backward pass
+(Riccati-like recursion).
 
 This is the framework's hottest op (reference hot loop: ``for i = N-1:-1:1``
 at ``src/backward_pass.jl:102-126`` plus the per-step gain solve / boxQP at
 ``:28-79`` and ``src/boxQP.jl:71-165``). The XLA expression (vmap over B of a
-``lax.scan``) leaves >98% of the VPU idle at reference problem sizes (n≤10,
-m≤2): XLA pads the tiny per-scenario matrices onto the lane axis. This kernel
-flips the layout — **scenario batch on the lanes** (see ``pack.py``): every
-small-matrix entry is one (8, 128) register tile over 1024 scenarios, and the
-whole per-step recursion unrolls over the tiny n/m dims as full-tile VPU
-multiply-adds.
+``lax.scan``, ``ops/backward.py``) launches small kernels for every timestep
+and every box-QP iteration. This kernel flips the layout — **scenario batch
+on the lanes** (see ``pack.py``): every small-matrix entry is one lane tile
+of ``W`` scenarios, and the whole per-step recursion unrolls over the tiny
+n/m dims as elementwise tile arithmetic.
 
-Performance structure:
-- ONE packed input stream (derivatives + nominal controls, ``pack.py``
-  layout) and ONE packed output stream per (batch-tile, time-block) grid
-  step — minimizes DMA issues per step; Pallas double-buffers both.
-- ``K_T`` timesteps are processed per grid step (statically unrolled) to
-  amortize per-step pipeline overhead; the time axis is padded at the front
-  (t<0 side) so the t=T-1 boundary stays in the first grid step.
-- value-function state (Vx, Vxx, dV, divergence flags) lives in VMEM scratch
-  across the whole T loop; re-initialized per batch tile.
+Structure:
+- the grid is the batch axis only: one program per lane-tile column, which
+  runs the whole time recursion in a ``lax.fori_loop`` from t=T-1 down to 0;
+- the value function (Vx, Vxx), the expected-reduction sums, the divergence
+  latch and (m>2) the box-QP warm start are loop carries, i.e. registers;
+  the t=T-1 boundary is evaluated before the loop;
+- ``k_t`` is the static unroll of the time loop; the loads of step t never
+  depend on the recursion, so Triton's pipelining keeps them in flight;
 - per-scenario λ regularization (reg_type 1/2, ``src/backward_pass.jl:119-123``)
   — λ is a lane vector, so the λ-retry driver escalates each scenario
-  independently in a single kernel relaunch.
+  independently in a single kernel relaunch;
 - control limits: m==1 closed-form clamped Newton; m==2 exact 9-configuration
   active-set enumeration (every box-QP active set of a 2-D strictly convex
   QP) with the free set derived from the KKT gradient conditions exactly like
   the reference (``src/boxQP.jl:92-94``); m>2 fixed-iteration masked
   projected-Newton (:func:`_boxqp_masked`) warm-started from the next
   timestep's k, like the reference's per-step boxQP
-  (``src/backward_pass.jl:49``, ``src/boxQP.jl:71-165``).
+  (``src/backward_pass.jl:49``, ``src/boxQP.jl:71-165``);
 - "Cholesky failed" (``src/backward_pass.jl:36-38``) = per-lane PD flag; the
   first failing timestep is latched like the reference's ``diverge`` index.
 
@@ -40,9 +39,8 @@ in-register from the previous-policy stream (``src/backward_pass.jl:293-299``,
 Full DDP (second-order dynamics terms) is supported on the
 ``derivs_tiles`` input path: when the model's tile function also returns
 ``fxx``/``fxu``/``fuu`` tile lists, their V'-contractions are added
-in-register (the packed-stream path stays first-order — n³ slots per step
-would defeat the HBM-traffic design). Unsupported here (falls back to the
-generic XLA path, ``ops/backward.py`` vmapped): f64.
+in-register (the packed-stream path stays first-order). The kernel is
+float32; f64 solves use the XLA tier (``ops/backward.py`` vmapped).
 """
 from __future__ import annotations
 
@@ -52,11 +50,9 @@ from typing import NamedTuple, Optional, Tuple
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from .pack import (B_TILE, LANES, SUBLANES, DerivLayout, to_lanes,
-                   from_lanes, vec_to_lanes, vec_from_lanes, padded_batch,
-                   clamp_k_t)
+from .pack import (DerivLayout, compiler_params, lane_spec, time_loop,
+                   to_lanes, from_lanes, vec_to_lanes)
 from ...policy import Derivs, GaussianPolicy
 from ..backward import BackwardOut
 
@@ -64,10 +60,10 @@ from ..backward import BackwardOut
 class OutLayout:
     """Slot offsets of the packed backward outputs, row-major flattened.
 
-    ``emit`` selects which blocks the kernel writes — the backward kernel is
-    bandwidth-bound on this stream at reference problem sizes (n=4, m=1:
-    27 slots × T × B ≈ 221 MB per call at B=4096, T=500), while the solve
-    loops only ever consume a prefix of it:
+    ``emit`` selects which blocks the kernel writes — the solve loops only
+    ever consume a prefix of the full stream, and every written slot is
+    T × B floats of device-memory traffic (n=4, m=1: 27 slots × T × B ≈
+    221 MB per call at B=4096, T=500):
 
     - ``"full"``: k, K, Vx, Vxx, Quu, Quu⁻¹ (everything — the result
       materialization and the batch-major parity wrapper).
@@ -116,7 +112,7 @@ class InLayout(DerivLayout):
 
 
 # ---------------------------------------------------------------------------
-# tiny-matrix helpers: matrices are Python lists of (8, 128) tiles
+# tiny-matrix helpers: matrices are Python lists of lane tiles
 # ---------------------------------------------------------------------------
 
 def _tiny_chol(Q, mm):
@@ -227,7 +223,6 @@ def _boxqp_m2(Q, g, lo, hi):
     cl1 = ((best_x1 <= lo[1]) & (gr1 > 0)) | ((best_x1 >= hi[1]) & (gr1 < 0))
     f0, f1 = ~cl0, ~cl1
     both = f0 & f1
-    # pure boolean algebra — Mosaic cannot lower select-on-i1 operands
     ok = ((both & (a > 0) & (det > 0))
           | (f0 & ~f1 & (a > 0))
           | (~f0 & f1 & (c > 0))
@@ -245,7 +240,7 @@ def _boxqp_masked(H, g, lo, hi, x0, mm, n_iter):
     Per iteration: KKT clamp detection (``src/boxQP.jl:92-94``), masked
     Cholesky, Newton step on the free dims, and a 3-candidate backtracking
     pick (α ∈ {1, ½, ¼} — the cheap in-register stand-in for the reference's
-    Armijo loop; each extra candidate is ~mm² VPU multiply-adds).
+    Armijo loop; each extra candidate is ~mm² multiply-adds per scenario).
 
     Returns ``(x, free, L, ok)``: solution tiles, final free mask, the final
     free-set Cholesky factor (for the feedback-gain solve,
@@ -320,7 +315,7 @@ def _boxqp_masked(H, g, lo, hi, x0, mm, n_iter):
 # kernel body
 # ---------------------------------------------------------------------------
 
-def _make_kernel(n: int, m: int, T: int, K_T: int, reg_type: int,
+def _make_kernel(n: int, m: int, T: int, k_t: int, reg_type: int,
                  lims: Optional[Tuple[Tuple[float, float], ...]],
                  derivs_tiles=None, gps: bool = False, n_params: int = 0,
                  qp_iters: int = 8, emit: str = "full",
@@ -329,325 +324,6 @@ def _make_kernel(n: int, m: int, T: int, K_T: int, reg_type: int,
     out = OutLayout(n, m, emit)
     use_limits = (lims is not None) or dyn_lims
     warm = use_limits and m > 2     # carried k warm start for the boxQP
-    T_pad = -(-T // K_T) * K_T
-    Tb = T_pad // K_T
-    pad = T_pad - T
-    # scratch slots
-    SVX = 0
-    SVXX = n
-    SDV1 = n + n * n
-    SDV2 = SDV1 + 1
-    SDIV = SDV2 + 1
-    SDIVT = SDIV + 1
-    SK = SDIVT + 1
-    n_scratch = SK + (m if warm else 0)
-
-    def read_derivs(kk, t_log, dp, par):
-        """Per-step derivative tiles: either sliced from the packed stream
-        or computed in-register from (x, u) by the model's ``derivs_tiles``
-        (saving ~90% of the backward input HBM traffic). ``par``: optional
-        per-scenario parameter tiles."""
-
-        def mat(off, r, c):
-            return [[dp(kk, off + i * c + j) for j in range(c)]
-                    for i in range(r)]
-
-        if derivs_tiles is None:
-            return dict(
-                fx=mat(lay.fx, n, n), fu=mat(lay.fu, n, m),
-                cx=[dp(kk, lay.cx + i) for i in range(n)],
-                cu=[dp(kk, lay.cu + mi) for mi in range(m)],
-                cxx=mat(lay.cxx, n, n), cxu=mat(lay.cxu, n, m),
-                cuu=mat(lay.cuu, m, m),
-                u=[dp(kk, lay.u + mi) for mi in range(m)])
-        x_t = [dp(kk, i) for i in range(n)]
-        u_t = [dp(kk, n + mi) for mi in range(m)]
-        d = (derivs_tiles(x_t, u_t, t_log, par) if n_params
-             else derivs_tiles(x_t, u_t, t_log))
-        d["u"] = u_t
-        return d
-
-    def read_kl(kk, prev_ref, eta_ref):
-        """GPS mode: η dual tile + KL cost-expansion tiles computed from the
-        previous-policy stream [k_prev(m), K_prev(m·n), Σ⁻¹_prev(m²)]
-        (``∇kl``, ``src/klutils.jl:8-23``)."""
-        eta = eta_ref[kk, 0, 0]
-        kp = [prev_ref[kk, mi, 0] for mi in range(m)]
-        Kp = [[prev_ref[kk, m + mi * n + j, 0] for j in range(n)]
-              for mi in range(m)]
-        Si = [[prev_ref[kk, m + m * n + mi * m + mj, 0] for mj in range(m)]
-              for mi in range(m)]
-        Sik = [sum(Si[mi][mj] * kp[mj] for mj in range(m))
-               for mi in range(m)]
-        SiK = [[sum(Si[mi][mj] * Kp[mj][j] for mj in range(m))
-                for j in range(n)] for mi in range(m)]
-        return dict(
-            eta=eta,
-            cx=[sum(Kp[mi][i] * Sik[mi] for mi in range(m))
-                for i in range(n)],
-            cu=[-Sik[mi] for mi in range(m)],
-            cxx=[[sum(Kp[mi][i] * SiK[mi][j] for mi in range(m))
-                  for j in range(n)] for i in range(n)],
-            cxu=[[-SiK[mi][j] for j in range(n)] for mi in range(m)],
-            cuu=Si)
-
-    def substep(kk, t_log, dp, o_ref, lam, scr, boundary: bool, kl=None,
-                par=None, limt=None):
-        """One timestep. ``kk`` static sub-index in the block; ``t_log``
-        traced logical timestep; ``boundary`` selects the t=T-1 init."""
-        zero = jnp.zeros((SUBLANES, LANES), jnp.float32)
-        d = read_derivs(kk, t_log, dp, par)
-
-        if boundary:
-            # boundary t = T-1 (src/backward_pass.jl:97-99, 280-283)
-            for i in range(n):
-                cxi = d["cx"][i]
-                scr[SVX + i] = cxi
-                if out.Vx is not None:
-                    o_ref[kk, out.Vx + i, 0] = cxi
-            for i in range(n):
-                for j in range(n):
-                    v = d["cxx"][i][j]
-                    scr[SVXX + i * n + j] = v
-                    if out.Vxx is not None:
-                        o_ref[kk, out.Vxx + i * n + j, 0] = v
-            for mi in range(m):
-                o_ref[kk, out.k + mi, 0] = zero
-                for j in range(n):
-                    o_ref[kk, out.K + mi * n + j, 0] = zero
-            if out.quu is not None:
-                if gps:
-                    cuu = [[d["cuu"][mi][mj] / kl["eta"] + kl["cuu"][mi][mj]
-                            for mj in range(m)] for mi in range(m)]
-                else:
-                    cuu = d["cuu"]
-                cuu_inv, _ok = _tiny_inv(cuu, m)
-                for mi in range(m):
-                    for mj in range(m):
-                        o_ref[kk, out.quu + mi * m + mj, 0] = cuu[mi][mj]
-                        o_ref[kk, out.quui + mi * m + mj, 0] = \
-                            cuu_inv[mi][mj]
-            scr[SDV1] = zero
-            scr[SDV2] = zero
-            scr[SDIV] = zero
-            scr[SDIVT] = zero
-            if warm:
-                # boxQP warm start: k[:, min(i+1, N-1)] with k[N-1]=0
-                # (src/backward_pass.jl:49)
-                for mi in range(m):
-                    scr[SK + mi] = zero
-            return
-
-        valid = (t_log >= 0) if pad else None
-
-        Vx = [scr[SVX + i] for i in range(n)]
-        Vxx = [[scr[SVXX + i * n + j] for j in range(n)] for i in range(n)]
-        fx, fu = d["fx"], d["fu"]
-        cx, cu = d["cx"], d["cu"]
-        cxx, cxu, cuu = d["cxx"], d["cxu"], d["cuu"]   # cxu: (n, m)
-        u_t = d["u"]
-
-        # Q expansions (src/backward_pass.jl:103-123)
-        Qx = [cx[i] + sum(fx[a][i] * Vx[a] for a in range(n))
-              for i in range(n)]
-        Qu = [cu[mi] + sum(fu[a][mi] * Vx[a] for a in range(n))
-              for mi in range(m)]
-        W = [[sum(Vxx[a][b] * fx[b][j] for b in range(n))
-              for j in range(n)] for a in range(n)]
-        U = [[sum(Vxx[a][b] * fu[b][mi] for b in range(n))
-              for mi in range(m)] for a in range(n)]
-        Qxx = [[cxx[i][j] + sum(fx[a][i] * W[a][j] for a in range(n))
-                for j in range(n)] for i in range(n)]
-        Quu = [[cuu[mi][mj] + sum(fu[a][mi] * U[a][mj] for a in range(n))
-                for mj in range(m)] for mi in range(m)]
-        Qux = [[cxu[j][mi] + sum(fu[a][mi] * W[a][j] for a in range(n))
-                for j in range(n)] for mi in range(m)]
-
-        if "fxx" in d:
-            # full DDP: second-order dynamics contractions with V'_{t+1}
-            # (reference vectens terms; layouts as ops/backward.py:154-159 —
-            # fxx[a][i][j]=∂²f_a/∂x_i∂x_j, fxu[a][j][mi], fuu[a][mi][mj]).
-            # Added before the regularization branches, so reg_type 2's
-            # Qux_r/QuuF inherit them exactly like the XLA path (:178-179).
-            fxx, fxu, fuu = d["fxx"], d["fxu"], d["fuu"]
-            Qxx = [[Qxx[i][j]
-                    + sum(Vx[a] * fxx[a][i][j] for a in range(n))
-                    for j in range(n)] for i in range(n)]
-            Qux = [[Qux[mi][j]
-                    + sum(Vx[a] * fxu[a][j][mi] for a in range(n))
-                    for j in range(n)] for mi in range(m)]
-            Quu = [[Quu[mi][mj]
-                    + sum(Vx[a] * fuu[a][mi][mj] for a in range(n))
-                    for mj in range(m)] for mi in range(m)]
-
-        if gps:
-            # GPS mode: η is the only regularizer; Q terms scaled by 1/η and
-            # augmented with the KL expansion (src/backward_pass.jl:293-299)
-            ie = 1.0 / kl["eta"]
-            Qx = [Qx[i] * ie + kl["cx"][i] for i in range(n)]
-            Qu = [Qu[mi] * ie + kl["cu"][mi] for mi in range(m)]
-            Qxx = [[Qxx[i][j] * ie + kl["cxx"][i][j] for j in range(n)]
-                   for i in range(n)]
-            Qux = [[Qux[mi][j] * ie + kl["cxu"][mi][j] for j in range(n)]
-                   for mi in range(m)]
-            Quu_g = [[Quu[mi][mj] * ie + kl["cuu"][mi][mj]
-                      for mj in range(m)] for mi in range(m)]
-            Quu = [[0.5 * (Quu_g[mi][mj] + Quu_g[mj][mi])
-                    for mj in range(m)] for mi in range(m)]
-            Qux_r, QuuF = Qux, Quu
-        # regularized gain matrices (src/backward_pass.jl:119-123)
-        elif reg_type == 2:
-            fuTfx = [[sum(fu[a][mi] * fx[a][j] for a in range(n))
-                      for j in range(n)] for mi in range(m)]
-            fuTfu = [[sum(fu[a][mi] * fu[a][mj] for a in range(n))
-                      for mj in range(m)] for mi in range(m)]
-            Qux_r = [[Qux[mi][j] + lam * fuTfx[mi][j]
-                      for j in range(n)] for mi in range(m)]
-            QuuF = [[Quu[mi][mj] + lam * fuTfu[mi][mj]
-                     for mj in range(m)] for mi in range(m)]
-        else:
-            Qux_r = Qux
-            QuuF = [[Quu[mi][mj] + (lam if mi == mj else 0.0)
-                     for mj in range(m)] for mi in range(m)]
-
-        # ---- gain solve
-        if not use_limits:
-            L, ok = _tiny_chol(QuuF, m)
-            k_t = _tiny_chol_solve(L, [-Qu[mi] for mi in range(m)], m)
-            K_t = [[None] * n for _ in range(m)]
-            for j in range(n):
-                col = _tiny_chol_solve(
-                    L, [-Qux_r[mi][j] for mi in range(m)], m)
-                for mi in range(m):
-                    K_t[mi][j] = col[mi]
-        elif m == 1:
-            lo = limt[0][0] - u_t[0]
-            hi = limt[0][1] - u_t[0]
-            x, free, ok = _boxqp_m1(QuuF[0][0], Qu[0], lo, hi)
-            k_t = [x]
-            quu_s = jnp.where(jnp.abs(QuuF[0][0]) > 1e-30,
-                              QuuF[0][0], 1e-30)
-            K_t = [[jnp.where(free, -Qux_r[0][j] / quu_s, 0.0)
-                    for j in range(n)]]
-        elif m == 2:
-            lo = [limt[0][0] - u_t[0], limt[1][0] - u_t[1]]
-            hi = [limt[0][1] - u_t[0], limt[1][1] - u_t[1]]
-            x0, x1, f0, f1, ok = _boxqp_m2(QuuF, Qu, lo, hi)
-            both = f0 & f1
-            k_t = [x0, x1]
-            a, b, c = QuuF[0][0], QuuF[0][1], QuuF[1][1]
-            det = a * c - b * b
-            det_s = jnp.where(jnp.abs(det) > 1e-30, det, 1e-30)
-            a_s = jnp.where(jnp.abs(a) > 1e-30, a, 1e-30)
-            c_s = jnp.where(jnp.abs(c) > 1e-30, c, 1e-30)
-            K_t = [[None] * n for _ in range(2)]
-            for j in range(n):
-                q0, q1 = Qux_r[0][j], Qux_r[1][j]
-                kb0 = (-q0 * c + q1 * b) / det_s
-                kb1 = (q0 * b - q1 * a) / det_s
-                K_t[0][j] = jnp.where(
-                    both, kb0, jnp.where(f0, -q0 / a_s, 0.0))
-                K_t[1][j] = jnp.where(
-                    both, kb1, jnp.where(f1, -q1 / c_s, 0.0))
-        else:
-            # m > 2: masked projected-Newton boxQP in-register, warm-started
-            # from the next timestep's k (src/backward_pass.jl:49); feedback
-            # gains solved on the final free subspace
-            # (src/backward_pass.jl:55-60)
-            lo = [limt[mi][0] - u_t[mi] for mi in range(m)]
-            hi = [limt[mi][1] - u_t[mi] for mi in range(m)]
-            x0w = [scr[SK + mi] for mi in range(m)]
-            k_t, free, Lq, ok = _boxqp_masked(QuuF, Qu, lo, hi, x0w, m,
-                                              qp_iters)
-            K_t = [[None] * n for _ in range(m)]
-            for j in range(n):
-                col = _tiny_chol_solve(
-                    Lq, [jnp.where(free[mi], -Qux_r[mi][j], 0.0)
-                         for mi in range(m)], m)
-                for mi in range(m):
-                    K_t[mi][j] = jnp.where(free[mi], col[mi], 0.0)
-
-        # sanitize diverged lanes so downstream consumers see zeros
-        k_t = [jnp.where(ok, v, 0.0) for v in k_t]
-        K_t = [[jnp.where(ok, v, 0.0) for v in row] for row in K_t]
-
-        # ---- value update with unregularized terms
-        #      (src/backward_pass.jl:63-72)
-        Quu_k = [sum(Quu[mi][mj] * k_t[mj] for mj in range(m))
-                 for mi in range(m)]
-        dv1 = scr[SDV1] + sum(k_t[mi] * Qu[mi] for mi in range(m))
-        dv2 = scr[SDV2] + 0.5 * sum(k_t[mi] * Quu_k[mi] for mi in range(m))
-        QuuK = [[sum(Quu[mi][mj] * K_t[mj][j] for mj in range(m))
-                 for j in range(n)] for mi in range(m)]
-        Vx_n = [Qx[i]
-                + sum(K_t[mi][i] * (Quu_k[mi] + Qu[mi]) for mi in range(m))
-                + sum(Qux[mi][i] * k_t[mi] for mi in range(m))
-                for i in range(n)]
-        # NOTE: computing only the upper triangles of Qxx/Quu/Vxx and
-        # mirroring (the "symmetry headroom" named in BASELINE.md round 2)
-        # was implemented and A/B-measured in round 3: it is ~1.5-2.5%
-        # SLOWER (0.394-0.401 ms full → 0.406-0.411 ms triangular at
-        # B=4096, T=500, k_t=25; tools/ab_backward.py, interleaved legs,
-        # 400-kernel on-device chains). Mosaic's scheduling absorbs the
-        # redundant FMAs; the mirrored tile aliases only add register
-        # pressure. Keep the straightforward full computation.
-        Vxx_raw = [[Qxx[i][j]
-                    + sum(K_t[mi][i] * QuuK[mi][j] for mi in range(m))
-                    + sum(K_t[mi][i] * Qux[mi][j] for mi in range(m))
-                    + sum(Qux[mi][i] * K_t[mi][j] for mi in range(m))
-                    for j in range(n)] for i in range(n)]
-        Vxx_n = [[0.5 * (Vxx_raw[i][j] + Vxx_raw[j][i])
-                  for j in range(n)] for i in range(n)]
-
-        if out.quu is not None:
-            Quu_inv, _okinv = _tiny_inv(Quu, m)
-
-        # ---- divergence latch (reference: diverge = first bad t, 1-based;
-        #      src/backward_pass.jl:36-38)
-        bad = (~ok).astype(jnp.float32)
-        was_div = scr[SDIV]
-        newly = bad * (1.0 - was_div)
-        tf = (t_log + 1).astype(jnp.float32)
-        divt = scr[SDIVT] * (1.0 - newly) + newly * tf
-        div = jnp.maximum(was_div, bad)
-
-        if valid is not None:
-            # padded (t<0) sub-steps must not advance state
-            keep = lambda new, old: jnp.where(valid, new, old)
-            Vx_n = [keep(v, Vx[i]) for i, v in enumerate(Vx_n)]
-            Vxx_n = [[keep(Vxx_n[i][j], Vxx[i][j]) for j in range(n)]
-                     for i in range(n)]
-            dv1 = keep(dv1, scr[SDV1])
-            dv2 = keep(dv2, scr[SDV2])
-            div = keep(div, was_div)
-            divt = keep(divt, scr[SDIVT])
-
-        # ---- write outputs + scratch
-        for mi in range(m):
-            o_ref[kk, out.k + mi, 0] = k_t[mi]
-            for j in range(n):
-                o_ref[kk, out.K + mi * n + j, 0] = K_t[mi][j]
-        for i in range(n):
-            if out.Vx is not None:
-                o_ref[kk, out.Vx + i, 0] = Vx_n[i]
-            scr[SVX + i] = Vx_n[i]
-            for j in range(n):
-                if out.Vxx is not None:
-                    o_ref[kk, out.Vxx + i * n + j, 0] = Vxx_n[i][j]
-                scr[SVXX + i * n + j] = Vxx_n[i][j]
-        if out.quu is not None:
-            for mi in range(m):
-                for mj in range(m):
-                    o_ref[kk, out.quu + mi * m + mj, 0] = Quu[mi][mj]
-                    o_ref[kk, out.quui + mi * m + mj, 0] = Quu_inv[mi][mj]
-        scr[SDV1] = dv1
-        scr[SDV2] = dv2
-        scr[SDIV] = div
-        scr[SDIVT] = divt
-        if warm:
-            for mi in range(m):
-                scr[SK + mi] = (k_t[mi] if valid is None else
-                                jnp.where(valid, k_t[mi], scr[SK + mi]))
 
     def kernel(*refs):
         refs = list(refs)
@@ -656,65 +332,290 @@ def _make_kernel(n: int, m: int, T: int, K_T: int, reg_type: int,
         if gps:
             prev_ref, eta_ref = rest[:2]
             rest = rest[2:]
-        else:
-            prev_ref = eta_ref = None
         params_ref = rest.pop(0) if n_params else None
         lims_ref = rest.pop(0) if dyn_lims else None
-        o_ref, stat_ref, scr = rest
-        g = pl.program_id(1)
-        lam = lam_ref[0]
-        blk = (Tb - 1) - g                  # time-block index (traced)
-        par = ([params_ref[p, 0] for p in range(n_params)]
-               if n_params else None)
+        o_ref, stat_ref = rest
+        lam = lam_ref[...]
+        zero = jnp.zeros_like(lam)
+        par = [params_ref[p] for p in range(n_params)] if n_params else None
         # control limits: static floats or per-scenario lane tiles (slot
         # order [lo_0, hi_0, ...]) — the reference's runtime-data lims
         # (src/iLQG.jl:124, src/backward_pass.jl:45-49)
         if dyn_lims:
-            limt = [(lims_ref[2 * mi, 0], lims_ref[2 * mi + 1, 0])
+            limt = [(lims_ref[2 * mi], lims_ref[2 * mi + 1])
                     for mi in range(m)]
         else:
             limt = lims
 
-        def dp(kk, s):
-            return dp_ref[kk, s, 0]
+        def read_derivs(t):
+            """Per-step derivative tiles: either sliced from the packed
+            stream or computed in-register from (x, u) by the model's
+            ``derivs_tiles`` (saving ~90% of the backward input traffic)."""
+            def mat(off, r, c):
+                return [[dp_ref[t, off + i * c + j] for j in range(c)]
+                        for i in range(r)]
 
-        # sub-steps run in reverse time order: kk = K_T-1 .. 0
-        for kk in reversed(range(K_T)):
-            t_log = blk * K_T + kk - pad
-            kl = read_kl(kk, prev_ref, eta_ref) if gps else None
-            if kk == K_T - 1:
-                @pl.when(g == 0)
-                def _():
-                    substep(kk, t_log, dp, o_ref, lam, scr, boundary=True,
-                            kl=kl, par=par, limt=limt)
+            if derivs_tiles is None:
+                return dict(
+                    fx=mat(lay.fx, n, n), fu=mat(lay.fu, n, m),
+                    cx=[dp_ref[t, lay.cx + i] for i in range(n)],
+                    cu=[dp_ref[t, lay.cu + mi] for mi in range(m)],
+                    cxx=mat(lay.cxx, n, n), cxu=mat(lay.cxu, n, m),
+                    cuu=mat(lay.cuu, m, m),
+                    u=[dp_ref[t, lay.u + mi] for mi in range(m)])
+            x_t = [dp_ref[t, i] for i in range(n)]
+            u_t = [dp_ref[t, n + mi] for mi in range(m)]
+            d = (derivs_tiles(x_t, u_t, t, par) if n_params
+                 else derivs_tiles(x_t, u_t, t))
+            d["u"] = u_t
+            return d
 
-                @pl.when(g > 0)
-                def _():
-                    substep(kk, t_log, dp, o_ref, lam, scr, boundary=False,
-                            kl=kl, par=par, limt=limt)
+        def read_kl(t):
+            """GPS mode: η dual tile + KL cost-expansion tiles computed from
+            the previous-policy stream [k_prev(m), K_prev(m·n), Σ⁻¹_prev(m²)]
+            (``∇kl``, ``src/klutils.jl:8-23``)."""
+            eta = eta_ref[t, 0]
+            kp = [prev_ref[t, mi] for mi in range(m)]
+            Kp = [[prev_ref[t, m + mi * n + j] for j in range(n)]
+                  for mi in range(m)]
+            Si = [[prev_ref[t, m + m * n + mi * m + mj] for mj in range(m)]
+                  for mi in range(m)]
+            Sik = [sum(Si[mi][mj] * kp[mj] for mj in range(m))
+                   for mi in range(m)]
+            SiK = [[sum(Si[mi][mj] * Kp[mj][j] for mj in range(m))
+                    for j in range(n)] for mi in range(m)]
+            return dict(
+                eta=eta,
+                cx=[sum(Kp[mi][i] * Sik[mi] for mi in range(m))
+                    for i in range(n)],
+                cu=[-Sik[mi] for mi in range(m)],
+                cxx=[[sum(Kp[mi][i] * SiK[mi][j] for mi in range(m))
+                      for j in range(n)] for i in range(n)],
+                cxu=[[-SiK[mi][j] for j in range(n)] for mi in range(m)],
+                cuu=Si)
+
+        def write(t, k_t_, K_t_, Vx, Vxx, Quu):
+            for mi in range(m):
+                o_ref[t, out.k + mi] = k_t_[mi]
+                for j in range(n):
+                    o_ref[t, out.K + mi * n + j] = K_t_[mi][j]
+            if out.Vx is not None:
+                for i in range(n):
+                    o_ref[t, out.Vx + i] = Vx[i]
+                    for j in range(n):
+                        o_ref[t, out.Vxx + i * n + j] = Vxx[i][j]
+            if out.quu is not None:
+                Quu_inv, _ok = _tiny_inv(Quu, m)
+                for mi in range(m):
+                    for mj in range(m):
+                        o_ref[t, out.quu + mi * m + mj] = Quu[mi][mj]
+                        o_ref[t, out.quui + mi * m + mj] = Quu_inv[mi][mj]
+
+        # ---- boundary t = T-1 (src/backward_pass.jl:97-99, 280-283)
+        t_end = jnp.int32(T - 1)
+        d = read_derivs(t_end)
+        if gps:
+            kl = read_kl(t_end)
+            cuu = [[d["cuu"][mi][mj] / kl["eta"] + kl["cuu"][mi][mj]
+                    for mj in range(m)] for mi in range(m)]
+        else:
+            cuu = d["cuu"]
+        write(t_end, [zero] * m, [[zero] * n for _ in range(m)],
+              d["cx"], d["cxx"], cuu)
+        # boxQP warm start: k[:, min(i+1, N-1)] with k[N-1]=0
+        # (src/backward_pass.jl:49)
+        state0 = (list(d["cx"]), [list(r) for r in d["cxx"]],
+                  zero, zero, zero, zero, [zero] * m if warm else [])
+
+        def step(t, st):
+            """One timestep t < T-1: returns the state for step t-1."""
+            Vx, Vxx, dv1, dv2, was_div, divt, kw = st
+            d = read_derivs(t)
+            fx, fu = d["fx"], d["fu"]
+            cx, cu = d["cx"], d["cu"]
+            cxx, cxu, cuu = d["cxx"], d["cxu"], d["cuu"]   # cxu: (n, m)
+            u_t = d["u"]
+
+            # Q expansions (src/backward_pass.jl:103-123)
+            Qx = [cx[i] + sum(fx[a][i] * Vx[a] for a in range(n))
+                  for i in range(n)]
+            Qu = [cu[mi] + sum(fu[a][mi] * Vx[a] for a in range(n))
+                  for mi in range(m)]
+            W_ = [[sum(Vxx[a][b] * fx[b][j] for b in range(n))
+                   for j in range(n)] for a in range(n)]
+            U = [[sum(Vxx[a][b] * fu[b][mi] for b in range(n))
+                  for mi in range(m)] for a in range(n)]
+            Qxx = [[cxx[i][j] + sum(fx[a][i] * W_[a][j] for a in range(n))
+                    for j in range(n)] for i in range(n)]
+            Quu = [[cuu[mi][mj] + sum(fu[a][mi] * U[a][mj] for a in range(n))
+                    for mj in range(m)] for mi in range(m)]
+            Qux = [[cxu[j][mi] + sum(fu[a][mi] * W_[a][j] for a in range(n))
+                    for j in range(n)] for mi in range(m)]
+
+            if "fxx" in d:
+                # full DDP: second-order dynamics contractions with V'_{t+1}
+                # (reference vectens terms; layouts as ops/backward.py:154-159
+                # — fxx[a][i][j]=∂²f_a/∂x_i∂x_j, fxu[a][j][mi],
+                # fuu[a][mi][mj]). Added before the regularization branches,
+                # so reg_type 2's Qux_r/QuuF inherit them exactly like the XLA
+                # path (:178-179).
+                fxx, fxu, fuu = d["fxx"], d["fxu"], d["fuu"]
+                Qxx = [[Qxx[i][j]
+                        + sum(Vx[a] * fxx[a][i][j] for a in range(n))
+                        for j in range(n)] for i in range(n)]
+                Qux = [[Qux[mi][j]
+                        + sum(Vx[a] * fxu[a][j][mi] for a in range(n))
+                        for j in range(n)] for mi in range(m)]
+                Quu = [[Quu[mi][mj]
+                        + sum(Vx[a] * fuu[a][mi][mj] for a in range(n))
+                        for mj in range(m)] for mi in range(m)]
+
+            if gps:
+                # GPS mode: η is the only regularizer; Q terms scaled by 1/η
+                # and augmented with the KL expansion
+                # (src/backward_pass.jl:293-299)
+                kl = read_kl(t)
+                ie = 1.0 / kl["eta"]
+                Qx = [Qx[i] * ie + kl["cx"][i] for i in range(n)]
+                Qu = [Qu[mi] * ie + kl["cu"][mi] for mi in range(m)]
+                Qxx = [[Qxx[i][j] * ie + kl["cxx"][i][j] for j in range(n)]
+                       for i in range(n)]
+                Qux = [[Qux[mi][j] * ie + kl["cxu"][mi][j] for j in range(n)]
+                       for mi in range(m)]
+                Quu_g = [[Quu[mi][mj] * ie + kl["cuu"][mi][mj]
+                          for mj in range(m)] for mi in range(m)]
+                Quu = [[0.5 * (Quu_g[mi][mj] + Quu_g[mj][mi])
+                        for mj in range(m)] for mi in range(m)]
+                Qux_r, QuuF = Qux, Quu
+            # regularized gain matrices (src/backward_pass.jl:119-123)
+            elif reg_type == 2:
+                fuTfx = [[sum(fu[a][mi] * fx[a][j] for a in range(n))
+                          for j in range(n)] for mi in range(m)]
+                fuTfu = [[sum(fu[a][mi] * fu[a][mj] for a in range(n))
+                          for mj in range(m)] for mi in range(m)]
+                Qux_r = [[Qux[mi][j] + lam * fuTfx[mi][j]
+                          for j in range(n)] for mi in range(m)]
+                QuuF = [[Quu[mi][mj] + lam * fuTfu[mi][mj]
+                         for mj in range(m)] for mi in range(m)]
             else:
-                substep(kk, t_log, dp, o_ref, lam, scr, boundary=False,
-                        kl=kl, par=par, limt=limt)
+                Qux_r = Qux
+                QuuF = [[Quu[mi][mj] + (lam if mi == mj else 0.0)
+                         for mj in range(m)] for mi in range(m)]
 
-        stat_ref[0, 0] = scr[SDV1]
-        stat_ref[1, 0] = scr[SDV2]
-        stat_ref[2, 0] = scr[SDIV]
-        stat_ref[3, 0] = scr[SDIVT]
+            # ---- gain solve
+            if not use_limits:
+                L, ok = _tiny_chol(QuuF, m)
+                k_t_ = _tiny_chol_solve(L, [-Qu[mi] for mi in range(m)], m)
+                K_t_ = [[None] * n for _ in range(m)]
+                for j in range(n):
+                    col = _tiny_chol_solve(
+                        L, [-Qux_r[mi][j] for mi in range(m)], m)
+                    for mi in range(m):
+                        K_t_[mi][j] = col[mi]
+            elif m == 1:
+                lo = limt[0][0] - u_t[0]
+                hi = limt[0][1] - u_t[0]
+                x, free, ok = _boxqp_m1(QuuF[0][0], Qu[0], lo, hi)
+                k_t_ = [x]
+                quu_s = jnp.where(jnp.abs(QuuF[0][0]) > 1e-30,
+                                  QuuF[0][0], 1e-30)
+                K_t_ = [[jnp.where(free, -Qux_r[0][j] / quu_s, 0.0)
+                         for j in range(n)]]
+            elif m == 2:
+                lo = [limt[0][0] - u_t[0], limt[1][0] - u_t[1]]
+                hi = [limt[0][1] - u_t[0], limt[1][1] - u_t[1]]
+                x0, x1, f0, f1, ok = _boxqp_m2(QuuF, Qu, lo, hi)
+                both = f0 & f1
+                k_t_ = [x0, x1]
+                a, b, c = QuuF[0][0], QuuF[0][1], QuuF[1][1]
+                det = a * c - b * b
+                det_s = jnp.where(jnp.abs(det) > 1e-30, det, 1e-30)
+                a_s = jnp.where(jnp.abs(a) > 1e-30, a, 1e-30)
+                c_s = jnp.where(jnp.abs(c) > 1e-30, c, 1e-30)
+                K_t_ = [[None] * n for _ in range(2)]
+                for j in range(n):
+                    q0, q1 = Qux_r[0][j], Qux_r[1][j]
+                    kb0 = (-q0 * c + q1 * b) / det_s
+                    kb1 = (q0 * b - q1 * a) / det_s
+                    K_t_[0][j] = jnp.where(
+                        both, kb0, jnp.where(f0, -q0 / a_s, 0.0))
+                    K_t_[1][j] = jnp.where(
+                        both, kb1, jnp.where(f1, -q1 / c_s, 0.0))
+            else:
+                # m > 2: masked projected-Newton boxQP in-register,
+                # warm-started from the next timestep's k
+                # (src/backward_pass.jl:49); feedback gains solved on the
+                # final free subspace (src/backward_pass.jl:55-60)
+                lo = [limt[mi][0] - u_t[mi] for mi in range(m)]
+                hi = [limt[mi][1] - u_t[mi] for mi in range(m)]
+                k_t_, free, Lq, ok = _boxqp_masked(QuuF, Qu, lo, hi, kw, m,
+                                                   qp_iters)
+                K_t_ = [[None] * n for _ in range(m)]
+                for j in range(n):
+                    col = _tiny_chol_solve(
+                        Lq, [jnp.where(free[mi], -Qux_r[mi][j], 0.0)
+                             for mi in range(m)], m)
+                    for mi in range(m):
+                        K_t_[mi][j] = jnp.where(free[mi], col[mi], 0.0)
 
-    return kernel, n_scratch, Tb, pad
+            # sanitize diverged lanes so downstream consumers see zeros
+            k_t_ = [jnp.where(ok, v, 0.0) for v in k_t_]
+            K_t_ = [[jnp.where(ok, v, 0.0) for v in row] for row in K_t_]
+
+            # ---- value update with unregularized terms
+            #      (src/backward_pass.jl:63-72)
+            Quu_k = [sum(Quu[mi][mj] * k_t_[mj] for mj in range(m))
+                     for mi in range(m)]
+            dv1 = dv1 + sum(k_t_[mi] * Qu[mi] for mi in range(m))
+            dv2 = dv2 + 0.5 * sum(k_t_[mi] * Quu_k[mi] for mi in range(m))
+            QuuK = [[sum(Quu[mi][mj] * K_t_[mj][j] for mj in range(m))
+                     for j in range(n)] for mi in range(m)]
+            Vx_n = [Qx[i]
+                    + sum(K_t_[mi][i] * (Quu_k[mi] + Qu[mi])
+                          for mi in range(m))
+                    + sum(Qux[mi][i] * k_t_[mi] for mi in range(m))
+                    for i in range(n)]
+            Vxx_raw = [[Qxx[i][j]
+                        + sum(K_t_[mi][i] * QuuK[mi][j] for mi in range(m))
+                        + sum(K_t_[mi][i] * Qux[mi][j] for mi in range(m))
+                        + sum(Qux[mi][i] * K_t_[mi][j] for mi in range(m))
+                        for j in range(n)] for i in range(n)]
+            Vxx_n = [[0.5 * (Vxx_raw[i][j] + Vxx_raw[j][i])
+                      for j in range(n)] for i in range(n)]
+
+            # ---- divergence latch (reference: diverge = first bad t,
+            #      1-based; src/backward_pass.jl:36-38)
+            bad = (~ok).astype(jnp.float32)
+            newly = bad * (1.0 - was_div)
+            tf = (t + 1).astype(jnp.float32)
+            divt = divt * (1.0 - newly) + newly * tf
+            div = jnp.maximum(was_div, bad)
+
+            write(t, k_t_, K_t_, Vx_n, Vxx_n, Quu)
+            return (Vx_n, Vxx_n, dv1, dv2, div, divt,
+                    k_t_ if warm else [])
+
+        _, _, dv1, dv2, div, divt, _ = time_loop(step, state0, T - 2, T - 1,
+                                                 k_t)
+        stat_ref[0] = dv1
+        stat_ref[1] = dv2
+        stat_ref[2] = div
+        stat_ref[3] = divt
+
+    return kernel
 
 
 class BackwardLanesOut(NamedTuple):
     """Lane-layout backward-pass outputs (see ``pack.py``; ``out`` slots per
     :class:`OutLayout`)."""
 
-    out: jax.Array      # (T, S, nB, 8, 128)
-    stats: jax.Array    # (4, nB, 8, 128): dV1, dV2, diverged, diverge_idx
+    out: jax.Array      # (T, S, nB) + TILE
+    stats: jax.Array    # (4, nB) + TILE: dV1, dV2, diverged, diverge_idx
 
 
 def pack_backward_inputs(derivs: Derivs, u: jax.Array, B: int) -> jax.Array:
     """Batch-major ``Derivs`` + controls → packed input stream
-    (T, D+m, nB, 8, 128)."""
+    (T, D+m, nB) + TILE."""
     T = u.shape[1]
     parts = [derivs.fx, derivs.fu, derivs.cx, derivs.cu,
              derivs.cxx, derivs.cxu, derivs.cuu, u]
@@ -729,7 +630,7 @@ def pack_backward_inputs(derivs: Derivs, u: jax.Array, B: int) -> jax.Array:
 def backward_lanes(dp: jax.Array, lam: jax.Array,
                    *, n: int, m: int, reg_type: int = 1,
                    lims: Optional[Tuple[Tuple[float, float], ...]] = None,
-                   k_t: int = 8,
+                   k_t: int = 1,
                    derivs_tiles=None,
                    prev: Optional[jax.Array] = None,
                    eta: Optional[jax.Array] = None,
@@ -742,27 +643,27 @@ def backward_lanes(dp: jax.Array, lam: jax.Array,
 
     Two input modes:
     - ``derivs_tiles=None``: ``dp`` is the packed derivative stream
-      (T, D+m, nB, 8, 128) from :func:`pack_backward_inputs`.
+      (T, D+m, nB) + TILE from :func:`pack_backward_inputs`.
     - ``derivs_tiles=fn``: ``dp`` is a trajectory stream with x in slots
       [0, n) and u in [n, n+m) (extra slots ignored); derivatives are
       computed in-register per step by ``fn(x_tiles, u_tiles, t) → dict``
-      with keys fx/fu/cx/cu/cxx/cxu/cuu (lists of (8, 128) tiles; cxu is
-      (n, m)). This cuts the input HBM traffic ~9×.
+      with keys fx/fu/cx/cu/cxx/cxu/cuu (lists of lane tiles; cxu is
+      (n, m)). This cuts the input traffic ~9×.
 
-    ``lam``: per-scenario λ (nB, 8, 128). ``lims``: static ((lo, hi),)*m or
+    ``lam``: per-scenario λ (nB,) + TILE. ``lims``: static ((lo, hi),)*m or
     None; ``lims_lanes``: PER-SCENARIO limits as lane tiles
-    (2m, nB, 8, 128), slot order [lo_0, hi_0, ...] — overrides ``lims``
+    (2m, nB) + TILE, slot order [lo_0, hi_0, ...] — overrides ``lims``
     (the reference takes lims as runtime data, ``src/iLQG.jl:124``).
-    ``k_t``: timesteps per grid step. ``emit``: output-stream slot
-    selection (see :class:`OutLayout`) — the kernel is bandwidth-bound on
-    this stream, so hot loops should request only what they consume
-    (``"gains"`` for the iLQG loop, ``"policy"`` for the GPS/KL loop).
+    ``k_t``: static unroll of the in-kernel time loop. ``emit``:
+    output-stream slot selection (see :class:`OutLayout`) — hot loops
+    request only what they consume (``"gains"`` for the iLQG loop,
+    ``"policy"`` for the GPS/KL loop).
 
     GPS mode (reference ``back_pass_gps``, ``src/backward_pass.jl:259-350``)
     activates when ``prev``/``eta`` are given: ``prev`` is the
-    previous-policy stream (T, m + m·n + m², nB, 8, 128) holding
+    previous-policy stream (T, m + m·n + m², nB) + TILE holding
     [k_prev, K_prev, Σ⁻¹_prev] and ``eta`` the per-timestep per-scenario
-    dual (T, 1, nB, 8, 128); λ is then unused (``src/iLQGkl.jl:99``).
+    dual (T, 1, nB) + TILE; λ is then unused (``src/iLQGkl.jl:99``).
 
     Returns lane-layout outputs.
     """
@@ -779,81 +680,51 @@ def backward_lanes(dp: jax.Array, lam: jax.Array,
     assert T >= 2
     n_params = 0 if params is None else params.shape[0]
     dyn_lims = lims_lanes is not None
-    S_out = OutLayout(n, m, emit).S
-    slots = in_slots + S_out + ((m + m * n + m * m + 1) if gps else 0)
-    k_t = clamp_k_t(k_t, T, slots)
-    kernel, n_scratch, Tb, pad = _make_kernel(n, m, T, k_t, reg_type, lims,
-                                              derivs_tiles, gps, n_params,
-                                              qp_iters, emit, dyn_lims)
-    if pad:
-        zfront = lambda a: jnp.concatenate(
-            [jnp.zeros((pad,) + a.shape[1:], a.dtype), a], axis=0)
-        dp = zfront(dp)
-        if gps:
-            prev = zfront(prev)
-            eta = zfront(eta)
-    if gps:
-        # guard against 1/0 on zero-padded lanes/steps (results masked away)
-        eta = jnp.where(eta == 0, 1.0, eta)
-
-    tile = (SUBLANES, LANES)
+    S = OutLayout(n, m, emit).S
+    kernel = _make_kernel(n, m, T, max(1, min(k_t, T)), reg_type, lims,
+                          derivs_tiles, gps, n_params, qp_iters, emit,
+                          dyn_lims)
+    tile = dp.shape[3:]
     f32 = jnp.float32
-    S = S_out
 
-    def rev(bt, g):
-        return (Tb - 1 - g, 0, bt, 0, 0)
-
-    in_specs = [
-        pl.BlockSpec((k_t, in_slots, 1) + tile, rev,
-                     memory_space=pltpu.VMEM),
-        pl.BlockSpec((1,) + tile, lambda bt, g: (bt, 0, 0),
-                     memory_space=pltpu.VMEM),
-    ]
-    inputs = [dp, lam]
+    spec = functools.partial(lane_spec, width=tile[-1])
+    in_specs = [spec((T, in_slots)), spec(())]
+    inputs = [dp.astype(f32), lam.astype(f32)]
     if gps:
-        in_specs += [
-            pl.BlockSpec((k_t, m + m * n + m * m, 1) + tile, rev,
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((k_t, 1, 1) + tile, rev, memory_space=pltpu.VMEM),
-        ]
-        inputs += [prev, eta]
+        # guard against 1/0 on zero-padded lanes (results sliced away)
+        eta = jnp.where(eta == 0, 1.0, eta)
+        in_specs += [spec((T, m + m * n + m * m)), spec((T, 1))]
+        inputs += [prev.astype(f32), eta.astype(f32)]
     if n_params:
-        in_specs.append(pl.BlockSpec(
-            (n_params, 1) + tile, lambda bt, g: (0, bt, 0, 0),
-            memory_space=pltpu.VMEM))
-        inputs.append(params)
+        in_specs.append(spec((n_params,)))
+        inputs.append(params.astype(f32))
     if dyn_lims:
         assert lims_lanes.shape[0] == 2 * m, lims_lanes.shape
-        in_specs.append(pl.BlockSpec(
-            (2 * m, 1) + tile, lambda bt, g: (0, bt, 0, 0),
-            memory_space=pltpu.VMEM))
-        inputs.append(lims_lanes)
+        in_specs.append(spec((2 * m,)))
+        inputs.append(lims_lanes.astype(f32))
 
-    out = pl.pallas_call(
+    o, stats = pl.pallas_call(
         kernel,
-        grid=(nB, Tb),
+        grid=(nB,),
         in_specs=in_specs,
         out_shape=(
-            jax.ShapeDtypeStruct((Tb * k_t, S, nB) + tile, f32),
+            jax.ShapeDtypeStruct((T, S, nB) + tile, f32),
             jax.ShapeDtypeStruct((4, nB) + tile, f32),
         ),
-        out_specs=(
-            pl.BlockSpec((k_t, S, 1) + tile, rev, memory_space=pltpu.VMEM),
-            pl.BlockSpec((4, 1) + tile, lambda bt, g: (0, bt, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ),
-        scratch_shapes=[pltpu.VMEM((n_scratch,) + tile, f32)],
+        out_specs=(spec((T, S)), spec((4,))),
+        backend="triton",
+        compiler_params=compiler_params(),
         interpret=interpret,
+        name="backward_lanes",
     )(*inputs)
-    o, stats = out
-    return BackwardLanesOut(out=o[pad:], stats=stats)
+    return BackwardLanesOut(out=o, stats=stats)
 
 
 def backward_pass_pallas(derivs: Derivs, u: jax.Array, lam: jax.Array,
                          reg_type: int = 1,
                          lims=None,
                          use_limits: bool = False,
-                         k_t: int = 8,
+                         k_t: int = 1,
                          eta=None,
                          traj_prev: Optional[GaussianPolicy] = None,
                          interpret: bool = False) -> BackwardOut:

@@ -1,21 +1,24 @@
-"""Pallas TPU kernel for the batched forward rollout + multi-α line search.
+"""Pallas kernels (Triton route) for the batched forward rollout and the
+multi-α line search.
 
 Reference: ``forward_pass`` (``src/forward_pass.jl:9-33``) and the serial
-backtracking line search (``src/iLQG.jl:266-281``). TPU-native re-design:
+backtracking line search (``src/iLQG.jl:266-281``). Design:
 
-- scenario batch on the lanes (see ``pack.py``), time sequential in the grid;
-- ALL line-search α candidates are evaluated inside the kernel against the
-  same DMA'd per-step data — the per-candidate state lives in VMEM scratch,
-  so trying 6 α's costs 6× (tiny) compute but 1× HBM traffic;
-- two-phase line search: phase A emits only per-α total costs (the accept
-  decision), phase B re-rolls with the per-scenario accepted α and emits the
-  trajectory. 2 streaming passes beat 1 pass that materializes every
-  candidate trajectory 6× over.
+- scenario batch on the lanes (see ``pack.py``); the grid is the batch axis
+  only, and each program runs the time loop over its tile column in a
+  ``lax.fori_loop`` with the rollout state in registers (loop carries);
+- ALL line-search α candidates are rolled out inside the kernel against the
+  same per-step loads — trying 6 α's costs 6× (tiny) compute but 1× memory
+  traffic;
+- :func:`linesearch_lanes` fuses the line search into one launch: a first
+  in-kernel loop gives the per-α totals, the accept decision is taken in
+  registers between the loops, and a second loop re-rolls the accepted α and
+  writes the trajectory.
 
 The dynamics/cost are supplied as **lane functions** operating on lists of
-(8, 128) tiles (one tile per state/control dimension) — see
-:class:`LanesModel`; models provide hand-written instances
-(``models/pendcart.py``, ``models/linear.py``).
+lane tiles (one tile per state/control dimension) — see :class:`LanesModel`;
+models provide hand-written instances (``models/pendcart.py``,
+``models/linear.py``).
 """
 from __future__ import annotations
 
@@ -26,17 +29,16 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from .pack import LANES, SUBLANES, clamp_k_t
+from .pack import compiler_params, lane_spec, time_loop
 
 
 @dataclasses.dataclass(frozen=True)
 class LanesModel:
-    """Batched-on-lanes problem functions for the Pallas forward kernel.
+    """Batched-on-lanes problem functions for the Pallas kernels.
 
-    - ``dynamics(x, u, t) -> x_next``: x list[n], u list[m] of (8, 128)
-      tiles; ``t`` is a traced scalar timestep.
+    - ``dynamics(x, u, t) -> x_next``: x list[n], u list[m] of lane tiles
+      (elementwise over scenarios); ``t`` is a traced int32 timestep.
     - ``cost(x, u, t) -> tile``: running cost.
     - ``terminal(x) -> tile`` or None: extra terminal cost evaluated at the
       last state of the trajectory (the reference appends a zero-control
@@ -64,131 +66,109 @@ class LanesModel:
 
 
 class ForwardLanesOut(NamedTuple):
-    totals: jax.Array           # (A, nB, 8, 128) total cost per α candidate
-    traj: Optional[jax.Array]   # (T, n+m+1, nB, 8, 128): x, u, c — or None
-    terminal: jax.Array         # (A, nB, 8, 128) terminal-cost component
+    totals: jax.Array           # (A, nB) + TILE total cost per α candidate
+    traj: Optional[jax.Array]   # (T, n+m+1, nB) + TILE: x, u, c — or None
+    terminal: jax.Array         # (A, nB) + TILE terminal-cost component
     echo: Optional[jax.Array] = None  # (T, n+m, ...) input x/u slots echoed
     #                                   (emit_echo — see forward_lanes)
 
 
-def _make_kernel(model: LanesModel, T: int, K_T: int, A: int,
-                 lims: Optional[Tuple[Tuple[float, float], ...]],
-                 gk: int, gK: int, emit_traj: bool, dyn_lims: bool = False,
-                 emit_echo: bool = False):
-    n, m = model.n, model.m
-    P = model.n_params
-    Tb = -(-T // K_T)
-    T_pad = Tb * K_T
-    # scratch: per candidate α — x (n), run-cost (1), terminal (1)
-    stride = n + 2
+class _Rollout:
+    """The per-program rollout arithmetic shared by both kernels: the
+    model's functions bound to this program's parameter tiles, its control
+    limits, and readers of the step-t nominal trajectory and gains."""
 
-    def kernel(*refs):
-        refs = list(refs)
-        traj_ref, gains_ref, x0_ref, alpha_ref = refs[:4]
-        rest = refs[4:]
-        params_ref = rest.pop(0) if P else None
-        lims_ref = rest.pop(0) if dyn_lims else None
-        if emit_traj:
-            if emit_echo:
-                totals_ref, term_ref, out_ref, echo_ref, scr = rest
-            else:
-                totals_ref, term_ref, out_ref, scr = rest
-                echo_ref = None
+    def __init__(self, model: LanesModel, lims, gk: int, gK: int,
+                 traj_ref, gains_ref, params_ref, lims_ref):
+        n, m = model.n, model.m
+        self.model, self.n, self.m = model, n, m
+        self.gk, self.gK = gk, gK
+        self.traj_ref, self.gains_ref = traj_ref, gains_ref
+        par = ([params_ref[p] for p in range(model.n_params)]
+               if model.n_params else None)
+        if par is not None:
+            self.dyn = lambda x, u, t: model.dynamics(x, u, t, par)
+            self.cost = lambda x, u, t: model.cost(x, u, t, par)
+            self.term = (None if model.terminal is None
+                         else (lambda x: model.terminal(x, par)))
         else:
-            totals_ref, term_ref, scr = rest
-            echo_ref = None
-        g = pl.program_id(1)
-        if P:
-            par = [params_ref[p, 0] for p in range(P)]
-            dyn = lambda x, u, t: model.dynamics(x, u, t, par)
-            cost_fn = lambda x, u, t: model.cost(x, u, t, par)
-            term_fn = (None if model.terminal is None
-                       else (lambda x: model.terminal(x, par)))
-        else:
-            dyn, cost_fn, term_fn = model.dynamics, model.cost, model.terminal
+            self.dyn, self.cost, self.term = (model.dynamics, model.cost,
+                                              model.terminal)
         # control limits: static floats, or per-scenario lane tiles read
         # from the lims input (slot order [lo_0, hi_0, lo_1, hi_1, ...]) —
         # heterogeneous actuator bounds stay on the fast path
         # (reference lims are runtime data, src/iLQG.jl:124,
         # src/forward_pass.jl:22-24)
-        if dyn_lims:
-            lim_lo = [lims_ref[2 * mi, 0] for mi in range(m)]
-            lim_hi = [lims_ref[2 * mi + 1, 0] for mi in range(m)]
+        if lims_ref is not None:
+            self.lo = [lims_ref[2 * mi] for mi in range(m)]
+            self.hi = [lims_ref[2 * mi + 1] for mi in range(m)]
         elif lims is not None:
-            lim_lo = [lims[mi][0] for mi in range(m)]
-            lim_hi = [lims[mi][1] for mi in range(m)]
+            self.lo = [lims[mi][0] for mi in range(m)]
+            self.hi = [lims[mi][1] for mi in range(m)]
         else:
-            lim_lo = lim_hi = None
+            self.lo = self.hi = None
 
-        @pl.when(g == 0)
-        def _():
-            zero = jnp.zeros((SUBLANES, LANES), jnp.float32)
+    def read(self, t):
+        """Nominal x/u and gains k/K at step t."""
+        n, m = self.n, self.m
+        x_old = [self.traj_ref[t, i] for i in range(n)]
+        u_nom = [self.traj_ref[t, n + mi] for mi in range(m)]
+        k = [self.gains_ref[t, self.gk + mi] for mi in range(m)]
+        K = [[self.gains_ref[t, self.gK + mi * n + j] for j in range(n)]
+             for mi in range(m)]
+        return x_old, u_nom, k, K
+
+    def control(self, x, alpha, x_old, u_nom, k, K):
+        """u = u_nom + α k + K diff(x, x_old), clamped
+        (src/forward_pass.jl:17-24; diff_fun src/iLQG.jl:131)."""
+        if self.model.diff is not None:
+            dx = self.model.diff(x, x_old)
+        else:
+            dx = [x[j] - x_old[j] for j in range(self.n)]
+        u = []
+        for mi in range(self.m):
+            v = u_nom[mi] + alpha * k[mi]
+            for j in range(self.n):
+                v = v + K[mi][j] * dx[j]
+            if self.lo is not None:
+                v = jnp.clip(v, self.lo[mi], self.hi[mi])
+            u.append(v)
+        return u
+
+    def rollout(self, x0, alphas, T: int, k_t: int, emit=None):
+        """Roll every α in ``alphas`` from ``x0`` over the horizon. ``emit``
+        (or None): ``emit(t, x, u, c, x_old, u_nom)`` writes candidate 0's
+        step. Returns per-α (running cost sum, terminal cost)."""
+        A = len(alphas)
+
+        def step(t, st, last=False):
+            xs, cs = st
+            x_old, u_nom, k, K = self.read(t)
+            xs_n, cs_n = [], []
             for a in range(A):
-                for i in range(n):
-                    scr[a * stride + i] = x0_ref[i, 0]
-                scr[a * stride + n] = zero
-                scr[a * stride + n + 1] = zero
+                u = self.control(xs[a], alphas[a], x_old, u_nom, k, K)
+                c = self.cost(xs[a], u, t)
+                if emit is not None and a == 0:
+                    emit(t, xs[a], u, c, x_old, u_nom)
+                cs_n.append(cs[a] + c)
+                # the last state needs no successor: the terminal cost is
+                # evaluated at x[T-1] (src/system_pendcart.jl:97-106)
+                xs_n.append(xs[a] if last else list(self.dyn(xs[a], u, t)))
+            return xs_n, cs_n
 
-        for kk in range(K_T):
-            t_log = g * K_T + kk
-            x_old = [traj_ref[kk, i, 0] for i in range(n)]
-            u_nom = [traj_ref[kk, n + mi, 0] for mi in range(m)]
-            if echo_ref is not None:
-                # echo the INPUT x/u slots — the entry trajectory the
-                # driver's post-loop backward replay linearizes around.
-                # Landing it in a fresh kernel output (instead of rotating
-                # c.traj between carry positions) removes the per-iteration
-                # 2×41 MB carry copy (BASELINE.md while-loop copy audit);
-                # the values ride reads this kernel already does.
-                for i in range(n):
-                    echo_ref[kk, i, 0] = x_old[i]
-                for mi in range(m):
-                    echo_ref[kk, n + mi, 0] = u_nom[mi]
-            k_t = [gains_ref[kk, gk + mi, 0] for mi in range(m)]
-            K_t = [[gains_ref[kk, gK + mi * n + j, 0] for j in range(n)]
-                   for mi in range(m)]
-            valid = t_log < T
-            is_last = t_log == (T - 1)
+        zero = jnp.zeros_like(x0[0])
+        st = ([list(x0) for _ in range(A)], [zero] * A)
+        st = time_loop(step, st, 0, T - 1, k_t, direction=1)
+        xs, cs = step(jnp.int32(T - 1), st, last=True)
+        terms = [zero if self.term is None else self.term(xs[a])
+                 for a in range(A)]
+        return cs, terms
 
-            for a in range(A):
-                x = [scr[a * stride + i] for i in range(n)]
-                alpha = alpha_ref[a, 0]
-                # u = u_nom + α k + K diff(x, x_old), clamped
-                # (src/forward_pass.jl:17-24; diff_fun src/iLQG.jl:131)
-                if model.diff is not None:
-                    dx = model.diff(x, x_old)
-                else:
-                    dx = [x[j] - x_old[j] for j in range(n)]
-                u = []
-                for mi in range(m):
-                    v = u_nom[mi] + alpha * k_t[mi]
-                    for j in range(n):
-                        v = v + K_t[mi][j] * dx[j]
-                    if lim_lo is not None:
-                        v = jnp.clip(v, lim_lo[mi], lim_hi[mi])
-                    u.append(v)
-                c = cost_fn(x, u, t_log)
-                if emit_traj and a == 0:
-                    for i in range(n):
-                        out_ref[kk, i, 0] = x[i]
-                    for mi in range(m):
-                        out_ref[kk, n + mi, 0] = u[mi]
-                    out_ref[kk, n + m, 0] = c
-                x_next = dyn(x, u, t_log)
-                if term_fn is not None:
-                    term = term_fn(x)
-                    scr[a * stride + n + 1] = jnp.where(
-                        is_last, term, scr[a * stride + n + 1])
-                for i in range(n):
-                    scr[a * stride + i] = jnp.where(valid, x_next[i], x[i])
-                scr[a * stride + n] = scr[a * stride + n] + jnp.where(
-                    valid, c, 0.0)
 
-        for a in range(A):
-            totals_ref[a, 0] = scr[a * stride + n] + scr[a * stride + n + 1]
-            term_ref[a, 0] = scr[a * stride + n + 1]
-
-    return kernel, Tb, T_pad, A * stride
+def _optional_refs(refs, flags):
+    """Pop one ref per True flag from the front of ``refs`` (None for
+    False)."""
+    return [refs.pop(0) if f else None for f in flags]
 
 
 @functools.partial(
@@ -205,31 +185,30 @@ def forward_lanes(traj: jax.Array, gains: jax.Array, x0: jax.Array,
                   g_slots: Optional[int] = None,
                   emit_traj: bool = False,
                   emit_echo: bool = False,
-                  k_t: int = 8,
+                  k_t: int = 1,
                   interpret: bool = False) -> ForwardLanesOut:
     """Run the forward kernel on lane-layout inputs.
 
-    - ``traj``: (T, n+m, nB, 8, 128) — slots [x_old(n), u_nom(m)].
-    - ``gains``: (T, Sg, nB, 8, 128) — any packed stream holding k at slot
+    - ``traj``: (T, n+m, nB) + TILE — slots [x_old(n), u_nom(m)].
+    - ``gains``: (T, Sg, nB) + TILE — any packed stream holding k at slot
       ``gk`` and K (row-major (m, n)) at slot ``gK`` (defaults consume a
       compact [k, K] stream; pass the backward kernel's ``out`` directly with
       its :class:`~.backward_kernel.OutLayout` offsets).
-    - ``x0``: (n, nB, 8, 128); ``alphas``: (A, nB, 8, 128).
-    - ``g_slots``: stream only the first ``g_slots`` slots of ``gains``
-      (DMA window; must cover gk/gK+m·n). Lets the backward kernel's full
-      output stream feed this kernel while only its leading gain slots cross
-      HBM. Default: all slots.
+    - ``x0``: (n, nB) + TILE; ``alphas``: (A, nB) + TILE.
+    - ``g_slots``: read only the first ``g_slots`` slots of ``gains`` (must
+      cover gk/gK+m·n). Default: all slots.
     - ``emit_traj``: write the candidate-0 trajectory stream
-      (T, n+m+1, nB, 8, 128) — use with A==1 and per-scenario α for the
+      (T, n+m+1, nB) + TILE — use with A==1 and per-scenario α for the
       accepted-step re-roll.
     - ``lims_lanes``: optional PER-SCENARIO control limits as lane tiles
-      (2m, nB, 8, 128), slot order [lo_0, hi_0, ...] — overrides the static
+      (2m, nB) + TILE, slot order [lo_0, hi_0, ...] — overrides the static
       ``lims``; heterogeneous actuator bounds in one compile (the reference
       takes lims as runtime data, ``src/iLQG.jl:124``).
     - ``emit_echo`` (with ``emit_traj``): additionally write the INPUT
       trajectory's x/u slots to a second output — the entry-trajectory
       record the batch driver's backward replay needs, produced as a fresh
       kernel output instead of a carry-position rotation copy.
+    - ``k_t``: static unroll of the in-kernel time loop.
     """
     n, m = model.n, model.m
     T, nB = traj.shape[0], traj.shape[2]
@@ -241,56 +220,64 @@ def forward_lanes(traj: jax.Array, gains: jax.Array, x0: jax.Array,
     if g_slots is None:
         g_slots = gains.shape[1]
     assert g_slots >= gK + m * n and g_slots >= gk + m
-    k_t = clamp_k_t(k_t, T, (n + m) + g_slots
-                    + ((n + m + 1) if emit_traj else 0)
-                    + ((n + m) if emit_echo else 0))
-    k_t = min(k_t, T)
-    kernel, Tb, T_pad, n_scratch = _make_kernel(
-        model, T, k_t, A, lims, gk, gK, emit_traj, dyn_lims, emit_echo)
-    if T_pad != T:
-        zpad = lambda a: jnp.concatenate(
-            [a, jnp.zeros((T_pad - T,) + a.shape[1:], a.dtype)], axis=0)
-        traj, gains = zpad(traj), zpad(gains)
-
-    tile = (SUBLANES, LANES)
+    assert T >= 1
+    k_t = max(1, min(k_t, T))
+    tile = traj.shape[3:]
     f32 = jnp.float32
-    fwd = lambda bt, g: (g, 0, bt, 0, 0)
-    fixedA = lambda bt, g: (0, bt, 0, 0)
+    spec = functools.partial(lane_spec, width=tile[-1])
+
+    def kernel(*refs):
+        refs = list(refs)
+        traj_ref, gains_ref, x0_ref, alpha_ref = refs[:4]
+        rest = refs[4:]
+        params_ref, lims_ref = _optional_refs(rest,
+                                              (model.n_params, dyn_lims))
+        totals_ref, term_ref = rest[:2]
+        out_ref, echo_ref = _optional_refs(rest[2:], (emit_traj, emit_echo))
+        ro = _Rollout(model, lims, gk, gK, traj_ref, gains_ref, params_ref,
+                      lims_ref)
+
+        def emit(t, x, u, c, x_old, u_nom):
+            for i in range(n):
+                out_ref[t, i] = x[i]
+            for mi in range(m):
+                out_ref[t, n + mi] = u[mi]
+            out_ref[t, n + m] = c
+            if echo_ref is not None:
+                # echo the INPUT x/u slots — the entry trajectory the
+                # driver's post-loop backward replay linearizes around
+                for i in range(n):
+                    echo_ref[t, i] = x_old[i]
+                for mi in range(m):
+                    echo_ref[t, n + mi] = u_nom[mi]
+
+        cs, terms = ro.rollout([x0_ref[i] for i in range(n)],
+                               [alpha_ref[a] for a in range(A)], T, k_t,
+                               emit if emit_traj else None)
+        for a in range(A):
+            totals_ref[a] = cs[a] + terms[a]
+            term_ref[a] = terms[a]
 
     out_shape = [jax.ShapeDtypeStruct((A, nB) + tile, f32),
                  jax.ShapeDtypeStruct((A, nB) + tile, f32)]
-    out_specs = [pl.BlockSpec((A, 1) + tile, fixedA, memory_space=pltpu.VMEM),
-                 pl.BlockSpec((A, 1) + tile, fixedA, memory_space=pltpu.VMEM)]
+    out_specs = [spec((A,)), spec((A,))]
     if emit_traj:
-        out_shape.append(
-            jax.ShapeDtypeStruct((T_pad, n + m + 1, nB) + tile, f32))
-        out_specs.append(
-            pl.BlockSpec((k_t, n + m + 1, 1) + tile, fwd,
-                         memory_space=pltpu.VMEM))
+        out_shape.append(jax.ShapeDtypeStruct((T, n + m + 1, nB) + tile, f32))
+        out_specs.append(spec((T, n + m + 1)))
     if emit_echo:
-        out_shape.append(
-            jax.ShapeDtypeStruct((T_pad, n + m, nB) + tile, f32))
-        out_specs.append(
-            pl.BlockSpec((k_t, n + m, 1) + tile, fwd,
-                         memory_space=pltpu.VMEM))
+        out_shape.append(jax.ShapeDtypeStruct((T, n + m, nB) + tile, f32))
+        out_specs.append(spec((T, n + m)))
 
-    in_specs = [
-        pl.BlockSpec((k_t, n + m, 1) + tile, fwd, memory_space=pltpu.VMEM),
-        pl.BlockSpec((k_t, g_slots, 1) + tile, fwd,
-                     memory_space=pltpu.VMEM),
-        pl.BlockSpec((n, 1) + tile, fixedA, memory_space=pltpu.VMEM),
-        pl.BlockSpec((A, 1) + tile, fixedA, memory_space=pltpu.VMEM),
-    ]
+    in_specs = [spec((T, n + m)), spec((T, g_slots)), spec((n,)),
+                spec((A,))]
     inputs = [traj, gains, x0, alphas]
     if model.n_params:
         assert params is not None and params.shape[0] == model.n_params
-        in_specs.append(pl.BlockSpec((model.n_params, 1) + tile, fixedA,
-                                     memory_space=pltpu.VMEM))
+        in_specs.append(spec((model.n_params,)))
         inputs.append(params)
     if dyn_lims:
         assert lims_lanes.shape[0] == 2 * m, lims_lanes.shape
-        in_specs.append(pl.BlockSpec((2 * m, 1) + tile, fixedA,
-                                     memory_space=pltpu.VMEM))
+        in_specs.append(spec((2 * m,)))
         inputs.append(lims_lanes)
 
     # NOTE: no input/output aliasing here even when shapes allow it — the
@@ -298,204 +285,52 @@ def forward_lanes(traj: jax.Array, gains: jax.Array, x0: jax.Array,
     # whose input is the trust-region CENTER, deliberately kept live
     # across iterations (src/iLQGkl.jl:137-140); donating it would force
     # XLA to insert a protective full-stream copy per iteration. The iLQG
-    # drivers' in-place update lives in linesearch_lanes (opt-in).
+    # drivers' in-place update lives in linesearch_lanes.
     res = pl.pallas_call(
         kernel,
-        grid=(nB, Tb),
+        grid=(nB,),
         in_specs=in_specs,
         out_shape=tuple(out_shape),
         out_specs=tuple(out_specs),
-        scratch_shapes=[pltpu.VMEM((n_scratch,) + tile, f32)],
+        backend="triton",
+        compiler_params=compiler_params(),
         interpret=interpret,
-    )(*inputs)
+        name="forward_lanes",
+    )(*[x.astype(f32) for x in inputs])
 
-    if emit_echo:
-        totals, term, out, echo = res
-        return ForwardLanesOut(totals=totals, traj=out[:T], terminal=term,
-                               echo=echo[:T])
-    if emit_traj:
-        totals, term, out = res
-        return ForwardLanesOut(totals=totals, traj=out[:T], terminal=term)
-    totals, term = res
-    return ForwardLanesOut(totals=totals, traj=None, terminal=term)
-
-
-# ---------------------------------------------------------------------------
-# fused line search: phase A (per-α totals) + in-VMEM α selection + phase B
-# (accepted-α re-roll, trajectory emission) in ONE kernel
-# ---------------------------------------------------------------------------
-#
-# The two-phase design (module docstring) issued two kernel launches per
-# iteration with XLA glue (dcost/ratio/first-accept selects on (A, lanes)
-# arrays) between them. Fusing them removes the inter-phase glue and one
-# launch: the grid runs 2×Tb steps — the first Tb stream the trajectory for
-# the A-candidate totals, the per-lane accept decision happens entirely in
-# VMEM at the pass boundary (reference accept rule, src/iLQG.jl:269-280),
-# and the second Tb re-stream the SAME input blocks (index map ``g mod Tb``)
-# rolling the accepted α and emitting the new trajectory (+ the entry-echo).
-# The trajectory output block index is ``max(g - Tb, 0)``: during pass 1 it
-# pins block 0 (never written, never flushed — consecutive identical
-# indices), so fusion adds ZERO HBM traffic.
+    totals, term = res[:2]
+    return ForwardLanesOut(totals=totals, terminal=term,
+                           traj=res[2] if emit_traj else None,
+                           echo=res[3] if emit_echo else None)
 
 
 class LineSearchLanesOut(NamedTuple):
-    traj: jax.Array             # (T, n+m+1, nB, 8, 128) accepted-α rollout
+    traj: jax.Array             # (T, n+m+1, nB) + TILE accepted-α rollout
     echo: Optional[jax.Array]   # (T, n+m, ...) input x/u slots (entry traj)
-    ls: jax.Array               # (5, nB, 8, 128): al_sel, any_ok,
+    ls: jax.Array               # (5, nB) + TILE: al_sel, any_ok,
     #                             dcost_sel, ratio_sel, total_new
 
 
-def _make_fused_kernel(model: LanesModel, T: int, K_T: int,
-                       alphas: Tuple[float, ...], rr_min: float,
-                       lims, gk: int, gK: int, dyn_lims: bool,
-                       emit_echo: bool):
-    n, m = model.n, model.m
-    P = model.n_params
-    A = len(alphas)
-    Tb = -(-T // K_T)
-    T_pad = Tb * K_T
-    stride = n + 2
-    SLS = A * stride            # scratch slot holding α_eff for pass 2
-    n_scratch = SLS + 1
-
-    def kernel(*refs):
-        refs = list(refs)
-        traj_ref, gains_ref, x0_ref, sel_ref = refs[:4]
-        rest = refs[4:]
-        params_ref = rest.pop(0) if P else None
-        lims_ref = rest.pop(0) if dyn_lims else None
-        if emit_echo:
-            out_ref, echo_ref, ls_ref, scr = rest
+def _accept(alphas, totals, dv1, dv2, ctot, rr_min):
+    """The line-search accept decision over the descending α ladder
+    (src/iLQG.jl:269-280): the first α whose reduce ratio beats
+    ``rr_min``. Returns (al_sel, found, dcost_sel, ratio_sel)."""
+    al_sel = dc_sel = rt_sel = found = None
+    for a_i, a in enumerate(alphas):
+        dcost = ctot - totals[a_i]
+        expected = (-a) * (dv1 + a * dv2)
+        ratio = jnp.where(expected > 0, dcost / expected, jnp.sign(dcost))
+        ok = ratio > rr_min
+        if a_i == 0:
+            dc_sel, rt_sel, found = dcost, ratio, ok
+            al_sel = jnp.where(ok, a, 0.0)
         else:
-            out_ref, ls_ref, scr = rest
-            echo_ref = None
-        g = pl.program_id(1)
-        gb = jax.lax.rem(g, jnp.int32(Tb))  # block index within the pass
-        if P:
-            par = [params_ref[p, 0] for p in range(P)]
-            dyn = lambda x, u, t: model.dynamics(x, u, t, par)
-            cost_fn = lambda x, u, t: model.cost(x, u, t, par)
-            term_fn = (None if model.terminal is None
-                       else (lambda x: model.terminal(x, par)))
-        else:
-            dyn, cost_fn, term_fn = (model.dynamics, model.cost,
-                                     model.terminal)
-        if dyn_lims:
-            lim_lo = [lims_ref[2 * mi, 0] for mi in range(m)]
-            lim_hi = [lims_ref[2 * mi + 1, 0] for mi in range(m)]
-        elif lims is not None:
-            lim_lo = [lims[mi][0] for mi in range(m)]
-            lim_hi = [lims[mi][1] for mi in range(m)]
-        else:
-            lim_lo = lim_hi = None
-        zero = jnp.zeros((SUBLANES, LANES), jnp.float32)
-
-        @pl.when(g == 0)
-        def _():
-            for a in range(A):
-                for i in range(n):
-                    scr[a * stride + i] = x0_ref[i, 0]
-                scr[a * stride + n] = zero
-                scr[a * stride + n + 1] = zero
-
-        @pl.when(g == Tb)
-        def _():
-            # pass boundary: the accept decision, entirely in VMEM
-            # (src/iLQG.jl:269-280; bit-identical op order to the two-phase
-            # driver's XLA expression)
-            dv1, dv2 = sel_ref[0, 0], sel_ref[1, 0]
-            ctot, allow = sel_ref[2, 0], sel_ref[3, 0]
-            al_sel = zero
-            dc_sel = rt_sel = found = None
-            for a_i, a in enumerate(alphas):
-                tot_a = scr[a_i * stride + n] + scr[a_i * stride + n + 1]
-                dcost = ctot - tot_a
-                expected = (-a) * (dv1 + a * dv2)
-                ratio = jnp.where(expected > 0, dcost / expected,
-                                  jnp.sign(dcost))
-                ok = ratio > rr_min
-                if a_i == 0:
-                    dc_sel, rt_sel, found = dcost, ratio, ok
-                    al_sel = jnp.where(ok, a, 0.0)
-                else:
-                    take = ok & (~found)
-                    al_sel = jnp.where(take, a, al_sel)
-                    dc_sel = jnp.where(take, dcost, dc_sel)
-                    rt_sel = jnp.where(take, ratio, rt_sel)
-                    found = found | ok
-            al_eff = jnp.where(found & (allow > 0.5), al_sel, 0.0)
-            scr[SLS] = al_eff
-            ls_ref[0, 0] = al_sel
-            ls_ref[1, 0] = jnp.where(found, 1.0, 0.0)
-            ls_ref[2, 0] = dc_sel
-            ls_ref[3, 0] = rt_sel
-            # re-init candidate-0 state slots for the emission pass
-            for i in range(n):
-                scr[i] = x0_ref[i, 0]
-            scr[n] = zero
-            scr[n + 1] = zero
-
-        for kk in range(K_T):
-            t_log = gb * K_T + kk
-            x_old = [traj_ref[kk, i, 0] for i in range(n)]
-            u_nom = [traj_ref[kk, n + mi, 0] for mi in range(m)]
-            k_t = [gains_ref[kk, gk + mi, 0] for mi in range(m)]
-            K_t = [[gains_ref[kk, gK + mi * n + j, 0] for j in range(n)]
-                   for mi in range(m)]
-            valid = t_log < T
-            is_last = t_log == (T - 1)
-
-            def substep(a_i, alpha, emit):
-                x = [scr[a_i * stride + i] for i in range(n)]
-                if model.diff is not None:
-                    dx = model.diff(x, x_old)
-                else:
-                    dx = [x[j] - x_old[j] for j in range(n)]
-                u = []
-                for mi in range(m):
-                    v = u_nom[mi] + alpha * k_t[mi]
-                    for j in range(n):
-                        v = v + K_t[mi][j] * dx[j]
-                    if lim_lo is not None:
-                        v = jnp.clip(v, lim_lo[mi], lim_hi[mi])
-                    u.append(v)
-                c = cost_fn(x, u, t_log)
-                if emit:
-                    for i in range(n):
-                        out_ref[kk, i, 0] = x[i]
-                    for mi in range(m):
-                        out_ref[kk, n + mi, 0] = u[mi]
-                    out_ref[kk, n + m, 0] = c
-                    if echo_ref is not None:
-                        for i in range(n):
-                            echo_ref[kk, i, 0] = x_old[i]
-                        for mi in range(m):
-                            echo_ref[kk, n + mi, 0] = u_nom[mi]
-                x_next = dyn(x, u, t_log)
-                if term_fn is not None:
-                    term = term_fn(x)
-                    scr[a_i * stride + n + 1] = jnp.where(
-                        is_last, term, scr[a_i * stride + n + 1])
-                for i in range(n):
-                    scr[a_i * stride + i] = jnp.where(
-                        valid, x_next[i], x[i])
-                scr[a_i * stride + n] = scr[a_i * stride + n] + jnp.where(
-                    valid, c, 0.0)
-
-            @pl.when(g < Tb)
-            def _():
-                for a_i, a in enumerate(alphas):
-                    substep(a_i, a, emit=False)
-
-            @pl.when(g >= Tb)
-            def _():
-                substep(0, scr[SLS], emit=True)
-
-        @pl.when(g == 2 * Tb - 1)
-        def _():
-            ls_ref[4, 0] = scr[n] + scr[n + 1]
-
-    return kernel, Tb, T_pad, n_scratch
+            take = ok & (~found)
+            al_sel = jnp.where(take, a, al_sel)
+            dc_sel = jnp.where(take, dcost, dc_sel)
+            rt_sel = jnp.where(take, ratio, rt_sel)
+            found = found | ok
+    return al_sel, found, dc_sel, rt_sel
 
 
 @functools.partial(
@@ -515,14 +350,14 @@ def linesearch_lanes(traj: jax.Array, gains: jax.Array, x0: jax.Array,
                      g_slots: Optional[int] = None,
                      emit_echo: bool = True,
                      in_place: bool = False,
-                     k_t: int = 8,
+                     k_t: int = 1,
                      interpret: bool = False) -> LineSearchLanesOut:
     """Fused line search: per-α totals + accept decision + accepted-α
-    trajectory emission in one kernel launch (see the module-level fused
-    design note). Arguments as :func:`forward_lanes`, except:
+    trajectory emission in one kernel launch (module docstring). Arguments
+    as :func:`forward_lanes`, except:
 
     - ``alphas``: STATIC descending α ladder (folded into the kernel);
-    - ``sel``: (4, nB, 8, 128) lane tiles [dV1, dV2, cost_old_total,
+    - ``sel``: (4, nB) + TILE lane tiles [dV1, dV2, cost_old_total,
       allow] — ``allow`` (1.0/0.0) masks lanes permitted to accept
       (active ∧ backward OK ∧ not gradient-converged);
     - ``reduce_ratio_min``: STATIC accept threshold
@@ -545,83 +380,101 @@ def linesearch_lanes(traj: jax.Array, gains: jax.Array, x0: jax.Array,
     if g_slots is None:
         g_slots = gains.shape[1]
     assert g_slots >= gK + m * n and g_slots >= gk + m
-    k_t = clamp_k_t(k_t, T, (n + m) + g_slots + (n + m + 1)
-                    + ((n + m) if emit_echo else 0))
-    k_t = min(k_t, T)
-    kernel, Tb, T_pad, n_scratch = _make_fused_kernel(
-        model, T, k_t, tuple(float(a) for a in alphas),
-        float(reduce_ratio_min), lims, gk, gK, dyn_lims, emit_echo)
-    if T_pad != T:
-        zpad = lambda a: jnp.concatenate(
-            [a, jnp.zeros((T_pad - T,) + a.shape[1:], a.dtype)], axis=0)
-        traj, gains = zpad(traj), zpad(gains)
-
-    tile = (SUBLANES, LANES)
+    alphas = tuple(float(a) for a in alphas)
+    rr_min = float(reduce_ratio_min)
+    k_t = max(1, min(k_t, T))
+    tile = traj.shape[3:]
     f32 = jnp.float32
-    # pass 1 and pass 2 stream the same input blocks: index = g mod Tb;
-    # the trajectory outputs pin block 0 during pass 1 (never written) and
-    # advance with pass 2
-    two = lambda bt, g: (jax.lax.rem(g, jnp.int32(Tb)), 0, bt, 0, 0)
-    out2 = lambda bt, g: (jnp.maximum(g - Tb, 0), 0, bt, 0, 0)
-    fixed = lambda bt, g: (0, bt, 0, 0)
+    spec = functools.partial(lane_spec, width=tile[-1])
 
-    in_specs = [
-        pl.BlockSpec((k_t, n + m, 1) + tile, two, memory_space=pltpu.VMEM),
-        pl.BlockSpec((k_t, g_slots, 1) + tile, two,
-                     memory_space=pltpu.VMEM),
-        pl.BlockSpec((n, 1) + tile, fixed, memory_space=pltpu.VMEM),
-        pl.BlockSpec((4, 1) + tile, fixed, memory_space=pltpu.VMEM),
-    ]
+    def kernel(*refs):
+        refs = list(refs)
+        traj_ref, gains_ref, x0_ref, sel_ref = refs[:4]
+        rest = refs[4:]
+        params_ref, lims_ref = _optional_refs(rest,
+                                              (model.n_params, dyn_lims))
+        out_ref, echo_ref = _optional_refs(rest, (True, emit_echo))
+        (ls_ref,) = rest
+        ro = _Rollout(model, lims, gk, gK, traj_ref, gains_ref, params_ref,
+                      lims_ref)
+        x0 = [x0_ref[i] for i in range(n)]
+
+        # pass 1: per-α totals; nothing is written
+        cs, terms = ro.rollout(x0, alphas, T, k_t)
+        totals = [cs[a] + terms[a] for a in range(len(alphas))]
+
+        # the accept decision, in registers between the two loops
+        al_sel, found, dc_sel, rt_sel = _accept(
+            alphas, totals, sel_ref[0], sel_ref[1], sel_ref[2], rr_min)
+        al_eff = jnp.where(found & (sel_ref[3] > 0.5), al_sel, 0.0)
+
+        # pass 2: re-roll the accepted α and write the trajectory. With the
+        # trajectory aliased in place this is hazard-free: each program owns
+        # a disjoint set of scenario columns, pass 1 only reads, and within
+        # pass 2 step t reads its nominal x/u before writing step t, while
+        # later steps read only positions not yet written.
+        def emit(t, x, u, c, x_old, u_nom):
+            for i in range(n):
+                out_ref[t, i] = x[i]
+            for mi in range(m):
+                out_ref[t, n + mi] = u[mi]
+            out_ref[t, n + m] = c
+            if echo_ref is not None:
+                for i in range(n):
+                    echo_ref[t, i] = x_old[i]
+                for mi in range(m):
+                    echo_ref[t, n + mi] = u_nom[mi]
+
+        cs2, terms2 = ro.rollout(x0, [al_eff], T, k_t, emit)
+        ls_ref[0] = al_sel
+        ls_ref[1] = jnp.where(found, 1.0, 0.0)
+        ls_ref[2] = dc_sel
+        ls_ref[3] = rt_sel
+        ls_ref[4] = cs2[0] + terms2[0]
+
+    in_specs = [spec((T, n + m)), spec((T, g_slots)), spec((n,)), spec((4,))]
     inputs = [traj, gains, x0, sel]
     if model.n_params:
         assert params is not None and params.shape[0] == model.n_params
-        in_specs.append(pl.BlockSpec((model.n_params, 1) + tile, fixed,
-                                     memory_space=pltpu.VMEM))
+        in_specs.append(spec((model.n_params,)))
         inputs.append(params)
     if dyn_lims:
         assert lims_lanes.shape[0] == 2 * m, lims_lanes.shape
-        in_specs.append(pl.BlockSpec((2 * m, 1) + tile, fixed,
-                                     memory_space=pltpu.VMEM))
+        in_specs.append(spec((2 * m,)))
         inputs.append(lims_lanes)
 
-    out_shape = [jax.ShapeDtypeStruct((T_pad, n + m + 1, nB) + tile, f32)]
-    out_specs = [pl.BlockSpec((k_t, n + m + 1, 1) + tile, out2,
-                              memory_space=pltpu.VMEM)]
+    out_shape = [jax.ShapeDtypeStruct((T, n + m + 1, nB) + tile, f32)]
+    out_specs = [spec((T, n + m + 1))]
     if emit_echo:
-        out_shape.append(
-            jax.ShapeDtypeStruct((T_pad, n + m, nB) + tile, f32))
-        out_specs.append(pl.BlockSpec((k_t, n + m, 1) + tile, out2,
-                                      memory_space=pltpu.VMEM))
+        out_shape.append(jax.ShapeDtypeStruct((T, n + m, nB) + tile, f32))
+        out_specs.append(spec((T, n + m)))
     out_shape.append(jax.ShapeDtypeStruct((5, nB) + tile, f32))
-    out_specs.append(pl.BlockSpec((5, 1) + tile, fixed,
-                                  memory_space=pltpu.VMEM))
+    out_specs.append(spec((5,)))
 
-    # In-place trajectory update (opt-in): when the input stream carries
-    # the cost slot (the drivers' loop state, (T, n+m+1, ...)), alias it
-    # with the trajectory output so the kernel REWRITES the carry buffer
-    # instead of XLA copying a fresh output into the fixed carry position
-    # (the one structural while-loop copy left after the echo redesign —
-    # tools/hlo_copy_audit.py). Hazard-free by the grid schedule: input
-    # block b's last fetch (pass-2 step Tb+b) strictly precedes output
-    # block b's flush (step Tb+b+1), and distinct blocks never overlap.
-    # Callers must NOT use the input trajectory after the call (XLA would
-    # insert a protective copy) — the drivers' rollout-entry loop body
-    # qualifies; the pre-rolled path (which keeps c.traj live for the
-    # reject-select) does not.
+    # In-place trajectory update: when the input stream carries the cost
+    # slot (the drivers' loop state, (T, n+m+1, ...)), alias it with the
+    # trajectory output so the kernel rewrites the carry buffer instead of
+    # XLA copying a fresh output into the fixed carry position. Callers
+    # must NOT use the input trajectory after the call (XLA would insert a
+    # protective copy) — the drivers' rollout-entry loop body qualifies;
+    # the pre-rolled path (which keeps c.traj live for the reject-select)
+    # does not.
     alias = {0: 0} if in_place and traj.shape[1] == n + m + 1 else {}
     res = pl.pallas_call(
         kernel,
-        grid=(nB, 2 * Tb),
+        grid=(nB,),
         in_specs=in_specs,
         out_shape=tuple(out_shape),
         out_specs=tuple(out_specs),
-        scratch_shapes=[pltpu.VMEM((n_scratch,) + tile, f32)],
         input_output_aliases=alias,
+        backend="triton",
+        compiler_params=compiler_params(),
         interpret=interpret,
-    )(*inputs)
+        name="linesearch_lanes",
+    )(*[x.astype(f32) for x in inputs])
 
     if emit_echo:
         out, echo, ls = res
-        return LineSearchLanesOut(traj=out[:T], echo=echo[:T], ls=ls)
+        return LineSearchLanesOut(traj=out, echo=echo, ls=ls)
     out, ls = res
-    return LineSearchLanesOut(traj=out[:T], echo=None, ls=ls)
+    return LineSearchLanesOut(traj=out, echo=None, ls=ls)

@@ -5,7 +5,7 @@ The reference's backward recursion is strictly sequential in the horizon
 temporal parallelization of the Riccati recursion (PAPERS.md: "The
 Parallelization of Riccati Recursion"; the element algebra below follows the
 conditional-value-function formulation of Särkkä & García-Fernández's
-temporal-parallelization line of work) as the TPU-native stretch goal.
+temporal-parallelization line of work) as a stretch goal.
 
 Idea: the map from the value function at time s to the value function at
 time t < s is a Riccati flow on quadratics ``V(x) = ½xᵀJx − ηᵀx``. Such maps
@@ -42,6 +42,7 @@ from jax import lax
 
 from ..policy import Derivs, GaussianPolicy, sym
 from .backward import BackwardOut
+from .precision import highest_precision
 
 
 class _Elem(NamedTuple):
@@ -78,6 +79,7 @@ def _combine(e1: _Elem, e2: _Elem) -> _Elem:
     return _Elem(A=A12, b=b12, C=C12, eta=eta12, J=sym(J12))
 
 
+@highest_precision
 def parallel_riccati(derivs: Derivs, u: jax.Array) -> BackwardOut:
     """Unconstrained λ=0 backward pass via associative scan (parity
     interface with :func:`~.backward.backward_pass`).

@@ -1,27 +1,26 @@
 """Multi-host execution: `jax.distributed` plumbing + process-aware meshes.
 
 The reference is single-process (SURVEY.md §2 "Distributed communication
-backend: ABSENT"); this module is the TPU-native scaling layer the build
-plan adds (SURVEY.md §7 step 7, BASELINE.json north star: ≥80% solves/s
-efficiency 1 chip → 1 host → N ≥ 2 hosts).
+backend: ABSENT"); this module is the scaling layer the build plan adds
+(SURVEY.md §7 step 7, BASELINE.json north star: ≥80% solves/s efficiency
+1 card → 1 host → N ≥ 2 hosts).
 
 Design: scenario solves are embarrassingly parallel, so multi-host adds
-NOTHING to the per-iteration hot path — each host's chips solve their shard
-of the fleet over ICI-local lanes, and the only cross-host (DCN) traffic is
-the final ``psum`` of fleet convergence stats. Consequently the whole layer
-is (a) `jax.distributed.initialize` bring-up, (b) a global 1-D mesh over
-every chip in the slice, and (c) helpers to build global sharded fleet
+NOTHING to the per-iteration hot path — each host's cards solve their
+shard of the fleet locally, and the only cross-host traffic is the final
+``psum`` of fleet convergence stats. Consequently the whole layer is
+(a) `jax.distributed.initialize` bring-up, (b) a global 1-D mesh over every
+card of every process, and (c) helpers to build global sharded fleet
 arrays from per-process local data. The solvers themselves
 (:func:`~.mesh.ilqg_sharded`, :func:`~.mesh.ilqg_batch_sharded`) are
 mesh-agnostic: hand them the global mesh and global arrays and the same
 jitted SPMD program runs on every process.
 
-Typical multi-host program (one process per host, e.g. under SLURM/GKE)::
+Typical multi-host program (one process per host, e.g. under SLURM)::
 
     from differentialdynamicprogramming_jl_tpu.parallel import distributed as D
 
-    D.init_distributed()              # env-driven on TPU pods; explicit
-                                      # coordinator args on CPU/GPU clusters
+    D.init_distributed("host0:1234", num_processes=2, process_id=rank)
     mesh = D.global_mesh()
     x0s = D.distribute_batch(local_x0s, mesh)   # (B_local, n) per process
     u0s = D.distribute_batch(local_u0s, mesh)
@@ -50,9 +49,13 @@ def init_distributed(coordinator_address: Optional[str] = None,
                      cpu_collectives: str = "gloo") -> None:
     """Bring up the JAX distributed runtime for this process.
 
-    On TPU pods all arguments are discovered from the environment — call
-    with no arguments. On CPU/GPU clusters pass the coordinator explicitly
-    (``"host:port"``, the address of process 0).
+    Pass the coordinator explicitly (``"host:port"``, the address of
+    process 0), the process count and this process's id: nothing in a
+    plain GPU or CPU cluster tells JAX of them. One process per GPU needs
+    its own visible device — ``local_device_ids=[i]`` or
+    ``CUDA_VISIBLE_DEVICES`` — because a JAX process reserves most of every
+    card it opens, so two processes on one card fail for want of memory.
+    One process may also drive all of its host's cards.
 
     ``cpu_collectives`` selects the cross-process CPU collective backend
     ("gloo" default, "mpi" where available); it is applied when
@@ -61,7 +64,7 @@ def init_distributed(coordinator_address: Optional[str] = None,
     via the registration table, which is populated at import time, so this
     does NOT initialize XLA before ``jax.distributed.initialize``). XLA's
     default single-process CPU collectives silently hang across process
-    boundaries, so a CPU-only pod must get gloo even when the user relies
+    boundaries, so a CPU-only cluster must get gloo even when the user relies
     on platform auto-detection. Processes with an accelerator plugin
     registered and ``jax_platforms`` unset are left untouched.
     """

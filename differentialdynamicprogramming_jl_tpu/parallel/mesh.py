@@ -1,14 +1,16 @@
-"""Multi-device execution: scenario-batch data parallelism over a TPU mesh.
+"""Multi-device execution: scenario-batch data parallelism over a mesh.
 
 The reference is single-process, CPU-only, with strictly sequential loops
 (``src/backward_pass.jl:102``, ``src/forward_pass.jl:16`` — SURVEY.md §2
-"Parallelism: ABSENT"). The TPU-native design scales the *scenario axis*:
+"Parallelism: ABSENT"). This design scales the *scenario axis*:
 thousands of independent iLQG solves (varied x0 / targets / dynamics params)
 are vmapped per device and sharded across a 1-D device mesh with
 ``shard_map``. Each shard's outer ``while_loop`` runs independently — no
-cross-chip synchronization per iteration (solves are embarrassingly
-parallel); only scalar convergence statistics are reduced with ``psum`` over
-ICI when requested.
+cross-device synchronization per iteration (solves are embarrassingly
+parallel); only scalar convergence statistics are reduced with ``psum``
+when requested. The mesh is flat: on a host whose cards are joined all to
+all (NVLink), every pair is equally close, so the mesh follows the batch
+axis alone.
 """
 from __future__ import annotations
 
@@ -79,7 +81,7 @@ def ilqg_sharded(problem: Problem, x0s: jax.Array, u0s: jax.Array,
 
     ``shard_map`` gives each device an independent program: per-shard
     while-loops run to their own trip counts (no lock-step across devices,
-    unlike a vmapped-then-pjit solve) and nothing crosses ICI during the
+    unlike a vmapped-then-pjit solve) and nothing crosses devices during the
     solve. With ``reduce_stats=True`` the per-shard mean cost / iteration
     counts are ``psum``-reduced over the mesh (trace-reduction pattern,
     SURVEY.md §5) and returned alongside.
@@ -87,7 +89,7 @@ def ilqg_sharded(problem: Problem, x0s: jax.Array, u0s: jax.Array,
     Warm start / resume: as :func:`ilqg_batched` — pre-rolled ``x0s`` +
     ``cost0`` and the (B,) ``lam0``/``dlam0``/``accepted0`` counters ride
     sharded ``P(axis)``, so MPC re-rolls and fleet resumes run on the
-    portable tier at pod scale too.
+    portable tier across devices too.
 
     The batch axis must divide the mesh size. Returns an :class:`ILQGResult`
     with leading batch axis (sharded) and, optionally, the reduced stats.
@@ -128,7 +130,7 @@ def _sharded_xla_solver(problem, cfg, mesh, axis, reduce_stats, has_lims,
                            **kw)
         if not reduce_stats:
             return res
-        # scalar convergence stats over the whole fleet: psum over ICI
+        # scalar convergence stats over the whole fleet: one psum
         local_cost = jnp.sum(jnp.sum(res.cost, axis=-1))
         local_iters = jnp.sum(res.n_iters)
         local_solved = jnp.sum((res.reason == 1) | (res.reason == 2))
@@ -155,14 +157,14 @@ def ilqg_batch_sharded(model, packed_derivs, x0s: jax.Array, u0s: jax.Array,
                        axis: str = "b",
                        reduce_stats: bool = False,
                        derivs_tiles=None,
-                       kt_backward: int = 25,
-                       kt_forward: int = 10,
+                       kt_backward: int = 1,
+                       kt_forward: int = 1,
                        interpret: bool = False):
     """Shard the **lane-layout Pallas fast path**
     (:func:`~..solvers.batch.ilqg_batch_lanes`) over a device mesh.
 
     Each device runs the full batched solver on its scenario shard (B/n_dev
-    scenarios, padded per-device to the 1024-lane tile); nothing crosses ICI
+    scenarios, padded per-device to the lane tile); nothing crosses devices
     during the solve. With ``reduce_stats=True`` fleet-level scalars
     (total cost, iterations, solved count) are ``psum``-reduced over the mesh.
 
@@ -234,7 +236,7 @@ def ilqgkl_batch_sharded(model, derivs_tiles, x0s: jax.Array, traj_prev,
                          lims=None,
                          cfg=None,
                          r1=None,
-                         kt: int = 16,
+                         kt: int = 1,
                          mesh: Optional[Mesh] = None,
                          axis: str = "b",
                          reduce_stats: bool = False,
@@ -242,8 +244,8 @@ def ilqgkl_batch_sharded(model, derivs_tiles, x0s: jax.Array, traj_prev,
                          interpret: bool = False):
     """Shard the **GPS/KL lane fast path**
     (:func:`~..solvers.batch_kl.ilqgkl_batch_lanes`) over a device mesh —
-    the fleet-scale ``iLQGkl`` (reference ``src/iLQGkl.jl:25-252``) on a pod
-    slice.
+    the fleet-scale ``iLQGkl`` (reference ``src/iLQGkl.jl:25-252``) over
+    several cards.
 
     Arguments mirror :func:`~..solvers.batch_kl.ilqgkl_batch_lanes`:
     ``x0s`` (B, T, n) pre-rolled trajectories, ``traj_prev`` a
@@ -251,7 +253,7 @@ def ilqgkl_batch_sharded(model, derivs_tiles, x0s: jax.Array, traj_prev,
     center), ``fx_model`` (B, T, n, n) model linearizations, ``cost0`` (B,).
     Every batch-leading input is sharded ``P(axis)``; each device runs the
     full KL-constrained solve on its scenario shard — per-scenario η
-    brackets and divergence retries never cross ICI. With
+    brackets and divergence retries never cross devices. With
     ``reduce_stats=True`` the fleet scalars (total cost, iterations,
     satisfied count) are ``psum``-reduced over the mesh and returned
     alongside, replicated on every device/process.

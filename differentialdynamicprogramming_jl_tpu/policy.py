@@ -1,6 +1,6 @@
 """Core pytree data types.
 
-TPU-native re-design of the reference's mutable structs
+A re-design of the reference's mutable structs
 (``GaussianPolicy`` at ``src/iLQG.jl:39-53``, ``Trace`` at ``src/iLQG.jl:6-21``):
 frozen pytrees with time-major layout ``(T, ...)`` (scan-friendly), batchable by
 adding leading axes via ``jax.vmap``.
@@ -90,7 +90,7 @@ class Derivs(NamedTuple):
 class Trace(NamedTuple):
     """Fixed-shape per-iteration convergence record.
 
-    TPU-native equivalent of the reference's ``MVHistory`` trace keys
+    The equivalent of the reference's ``MVHistory`` trace keys
     (``src/iLQG.jl:175-177, 325-330``; ``src/iLQGkl.jl:161-166``): arrays of
     static length carried through the solver ``lax.while_loop``; entries past
     ``n_iters`` are zero/NaN padding.

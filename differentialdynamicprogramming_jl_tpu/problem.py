@@ -1,10 +1,10 @@
 """Problem definition: the user-facing contract of the framework.
 
 The reference's "plugin interface" is three callbacks ``f, costfun, df``
-(``src/iLQG.jl:63-92``). The TPU-native re-expression: pure jittable functions
+(``src/iLQG.jl:63-92``). The re-expression here: pure jittable functions
 on per-timestep vectors, with derivatives produced by JAX autodiff *by
 default* (``jax.jacfwd`` / hessians) — the reference makes users hand-write
-``df``; autodiff is the TPU-native upgrade. A hand-written ``derivs`` override
+``df``; autodiff is the upgrade. A hand-written ``derivs`` override
 is supported for parity testing against the reference's analytic Jacobians
 (e.g. ``src/system_pendcart.jl:137-154``).
 """
@@ -122,7 +122,7 @@ def broadcast_derivs(T: int, fx, fu, cx, cu, cxx, cxu, cuu,
                      fxx=None, fxu=None, fuu=None) -> Derivs:
     """Materialize possibly time-invariant derivative arrays to ``(T, ...)``.
 
-    This is the TPU-native replacement for the reference's
+    This is the replacement for the reference's
     dispatch-on-array-rank selection of specialized backward passes
     (``src/iLQG.jl:82-84``; the 5 ``back_pass`` methods in
     ``src/backward_pass.jl``): broadcast once, run one kernel.

@@ -27,6 +27,7 @@ from ..problem import Problem
 from ..ops.backward import BackwardOut, backward_pass
 from ..ops.forward import forward_pass, line_search
 from ..utils import printing as _pr
+from ..ops.precision import highest_precision
 
 
 def default_alphas(lo: float = 0.0, hi: float = -3.0, num: int = 11):
@@ -47,7 +48,7 @@ class ILQGConfig:
     # reference's 1e-7 absolute is finer than f32 cost resolution for any
     # |cost| > ~0.1, so a pure-f32 solve could never take this exit and
     # instead burned ~15 rejected iterations escalating λ to λmax
-    # (measured: tools/probe_f32_drift.py, BASELINE.md round 3). At f64
+    # (measured: tools/probe_f32_drift.py). At f64
     # the floor is ~8e-16·|cost|, inactive for every reference problem.
     tol_fun: float = 1e-7
     tol_grad: float = 1e-4
@@ -71,7 +72,7 @@ class ILQGConfig:
     # the unconstrained λ≈0 regime (λ ≤ 10·lam_min, no limits, no GPS mode,
     # first-order dynamics), with the sequential recursion as fallback —
     # λ escalation after a divergence lands in the sequential branch.
-    # Long-horizon/small-batch regime only; see tools/bench_riccati.py.
+    # Long-horizon/small-batch regime only (ROADMAP design item 5).
     backward: str = "scan"
     # total-iteration cap (accepted + rejected); the reference's loop counts
     # only accepted iterations (src/iLQG.jl:222) and is unbounded in rejects,
@@ -194,6 +195,7 @@ def _write_trace(trace: Trace, i, cap, **kv) -> Trace:
     return Trace(**d)
 
 
+@highest_precision
 def ilqg(problem: Problem, x0: jax.Array, u0: jax.Array,
          lims: Optional[jax.Array] = None,
          cfg: ILQGConfig = ILQGConfig(),

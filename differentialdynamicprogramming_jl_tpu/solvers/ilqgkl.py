@@ -32,6 +32,7 @@ from ..ops.backward import backward_pass
 from ..ops.forward import forward_pass, forward_covariance
 from ..ops.kl import (grad_kl, kl_div_wiki, calc_eta, entropy, pd_ok,
                       adam_init, adam_update, AdamState)
+from ..ops.precision import highest_precision
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,6 +76,7 @@ class ILQGKLResult(NamedTuple):
     #                              src/klutils.jl:84); aborted, not satisfied
 
 
+@highest_precision
 def ilqg_kl(problem: Problem,
             x0: jax.Array,
             traj_prev: GaussianPolicy,

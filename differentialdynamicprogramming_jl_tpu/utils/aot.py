@@ -2,13 +2,13 @@
 
 Production-serving story with no reference analogue: the reference is a
 JIT-on-first-call Julia library (every process pays compilation and must
-carry the full model-definition code, ``src/iLQG.jl:143``). The TPU-native
-equivalent uses ``jax.export``: trace + lower a jitted solver ONCE on a
-build machine, serialize the lowered program (StableHLO + Mosaic kernel
-payloads) to bytes, then deserialize in a serving process and call it with
-zero Python tracing. The artifact pins the program — model code, config
-constants, and kernel choices are baked in at build time, so a serving
-host cannot silently diverge from what was validated.
+carry the full model-definition code, ``src/iLQG.jl:143``). The equivalent
+here uses ``jax.export``: trace + lower a jitted solver ONCE on a build
+machine, serialize the lowered program (StableHLO, plus the Triton kernel
+payloads of the lane tier) to bytes, then deserialize in a serving process
+and call it with zero Python tracing. The artifact pins the program — model
+code, config constants, and kernel choices are baked in at build time, so a
+serving host cannot silently diverge from what was validated.
 
 Scope/caveats (inherent to ``jax.export``):
 - Shapes and dtypes are fixed at export time (one artifact per (B, T)
@@ -17,9 +17,15 @@ Scope/caveats (inherent to ``jax.export``):
 - Static configuration (``ILQGConfig``, ``LanesModel``, derivative tiles,
   limits) is closed over at build time; runtime inputs are the traced
   arrays only (x0s, u0s, optional resume state).
-- Artifacts are forward-compatible across jax releases per the StableHLO
-  compatibility window; the Pallas lane tier additionally embeds Mosaic
-  custom calls, which are TPU-only and carry their own versioning.
+- XLA-tier artifacts are forward-compatible across jax releases per the
+  StableHLO compatibility window. A lane-tier artifact for a GPU embeds
+  Triton IR in the ``__gpu$xla.gpu.triton`` custom call, whose format JAX
+  does not promise to keep stable: :func:`export_solver` allows that call
+  explicitly, which binds the artifact to the JAX and CUDA versions that
+  built it.
+- Serializing to bytes needs JAX's optional ``flatbuffers`` dependency;
+  without it :func:`export_solver` still works, and its ``Exported`` can be
+  called in-process (``jax.jit(exported.call)``).
 
 Usage::
 
@@ -48,6 +54,10 @@ __all__ = [
 ]
 
 _REGISTERED = False
+
+# the custom call that carries a Pallas kernel compiled through Triton
+TRITON_CALL = _jax_export.DisabledSafetyCheck.custom_call(
+    "__gpu$xla.gpu.triton")
 
 
 def register_serialization() -> None:
@@ -83,7 +93,7 @@ def register_serialization() -> None:
     for cls in (GaussianPolicy, Derivs, Trace, ILQGResult, ILQGKLResult,
                 BatchTrace, BatchILQGResult, BatchKLTrace, BatchKLResult,
                 BoxQPResult, QPTrace):
-        name = f"ddp_tpu.{cls.__module__}.{cls.__qualname__}"
+        name = f"ddp.{cls.__module__}.{cls.__qualname__}"
         if _ser_reg is not None and cls in _ser_reg:
             prior = _ser_reg[cls][0]
             if prior == name:
@@ -121,16 +131,20 @@ def export_solver(fn: Callable, *example_args,
     static model/config, taking only array inputs). ``example_args`` may
     be concrete arrays or ``jax.ShapeDtypeStruct`` pytrees — only their
     shapes/dtypes matter. ``platforms`` defaults to the current backend;
-    pass ``("tpu",)`` to cross-build a TPU artifact from a CPU host (XLA
-    tier only — the Pallas lane tier must be lowered on a TPU-visible
-    build host).
+    pass ``("cuda",)`` to cross-build a GPU artifact from a CPU host.
+
+    The lane tier's Triton kernels are allowed through
+    ``DisabledSafetyCheck.custom_call("__gpu$xla.gpu.triton")``: their IR
+    is not on ``jax.export``'s list of stable custom calls, so such an
+    artifact is bound to the JAX and CUDA versions that built it.
     """
     register_serialization()
     specs = jax.tree_util.tree_map(_abstractify, example_args)
     kwargs = {}
     if platforms is not None:
         kwargs["platforms"] = tuple(platforms)
-    return _jax_export.export(jax.jit(fn), **kwargs)(*specs)
+    return _jax_export.export(
+        jax.jit(fn), disabled_checks=[TRITON_CALL], **kwargs)(*specs)
 
 
 def serialize_solver(fn: Callable, *example_args,

@@ -3,7 +3,7 @@
 The reference has no checkpointing; its moral equivalent is warm starting —
 pre-rolled ``x0`` + ``cost`` kwargs (``src/iLQG.jl:85-87,193-197``) and
 ``traj_prev`` re-centering in the GPS loop (``src/demo_linear.jl:124-130``).
-The TPU framework makes that durable: any solver pytree (GaussianPolicy,
+This framework makes that durable: any solver pytree (GaussianPolicy,
 trajectories, ILQGResult, solver state) round-trips to a single ``.npz``
 file, so MPC fleets can checkpoint/resume warm starts across processes and
 hosts.

@@ -1,7 +1,9 @@
 """Test configuration: CPU backend with 8 virtual devices (the standard
 fake-multi-device trick for sharding tests — SURVEY.md §4), f64 enabled for
 numerical-parity oracles (the reference is Float64 throughout); dedicated f32
-tests cast explicitly to exercise the TPU-throughput dtype path."""
+tests cast explicitly to exercise the float32 lane-tier dtype path. Tests
+marked ``gpu`` take the ``gpu_device`` fixture and skip here; on a card
+they run through ``python chip_smoke.py --phase gpu_tests``."""
 import os
 
 os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
@@ -13,12 +15,16 @@ jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 
 # Persistent compile cache (keyed by HLO hash): interpret-mode Pallas
-# compiles dominate the suite's ~30 min wall time and are identical across
-# runs, so repeat suite runs load executables from disk instead of
-# recompiling. Composes with the per-module clear_caches() below: memory
-# stays bounded, but re-JITs after a clear hit the disk cache. Code changes
-# change the HLO hash, so staleness is not a risk.
-jax.config.update("jax_compilation_cache_dir", "/tmp/jaxcache_tests")
+# compiles dominate the suite's wall time and are identical across runs, so
+# repeat suite runs load executables from disk instead of recompiling.
+# Composes with the per-module clear_caches() below: memory stays bounded,
+# but re-JITs after a clear hit the disk cache. Code changes change the HLO
+# hash, so staleness is not a risk. Where the cache lives is the package's
+# rule (runtime.compile_cache_dir).
+from differentialdynamicprogramming_jl_tpu.runtime import (  # noqa: E402
+    enable_compile_cache)
+
+enable_compile_cache()
 jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 2)
 
@@ -28,6 +34,16 @@ import pytest  # noqa: E402
 @pytest.fixture
 def key():
     return jax.random.PRNGKey(0)
+
+
+@pytest.fixture
+def gpu_device():
+    """The CUDA device for tests marked ``gpu``; decided here, never at
+    import time, so every xdist worker collects the same tests."""
+    if jax.default_backend() != "gpu":
+        pytest.skip("needs a CUDA GPU; this process runs on "
+                    f"{jax.default_backend()}")
+    return jax.devices()[0]
 
 
 @pytest.fixture(autouse=True, scope="module")

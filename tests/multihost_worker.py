@@ -1,8 +1,8 @@
-"""One process of a simulated 2-host pod (spawned by test_multihost.py).
+"""One process of a simulated 2-host cluster (spawned by test_multihost.py).
 
 Each worker owns 4 virtual CPU devices; the two workers form one 8-device
 global mesh connected by gloo cross-process collectives — the CPU stand-in
-for a multi-host TPU slice over DCN (SURVEY.md §4's fake-multi-device trick
+for a multi-host accelerator cluster (SURVEY.md §4's fake-multi-device trick
 extended across process boundaries, SURVEY.md §7 step 7).
 
 Protocol: argv = (process_id, num_processes, coordinator_port). Prints
@@ -32,7 +32,10 @@ jax.config.update("jax_enable_x64", True)
 # share the suite's persistent compile cache (tests/conftest.py) — the
 # workers are fresh processes and would otherwise recompile both solver
 # tiers every run; concurrent writers are safe (atomic renames)
-jax.config.update("jax_compilation_cache_dir", "/tmp/jaxcache_tests")
+from differentialdynamicprogramming_jl_tpu.runtime import (  # noqa: E402
+    enable_compile_cache)
+
+enable_compile_cache()
 jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 2)
 

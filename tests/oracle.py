@@ -1,10 +1,10 @@
 """Independent NumPy implementation of the iLQG algorithm with the exact
-reference semantics (Tassa/Mansard/Todorov ICRA 2014; reference behavior at
-``/root/reference/src/iLQG.jl``, ``backward_pass.jl``, ``boxQP.jl``,
+reference semantics (Tassa/Mansard/Todorov ICRA 2014; reference behavior in
+the reference's ``src/iLQG.jl``, ``backward_pass.jl``, ``boxQP.jl``,
 ``forward_pass.jl``) — used ONLY as a parity oracle for tests. Plain Python
 loops, eager numpy, exceptions for non-PD: deliberately the *opposite* of the
-TPU-native design, so the two implementations share no code or structure and
-agreement is meaningful evidence of correctness.
+jitted, batched design, so the two implementations share no code or
+structure and agreement is meaningful evidence of correctness.
 
 Conventions match the framework (time-major, 0-based): x (T,n), u (T,m),
 K (T,m,n).

@@ -16,6 +16,7 @@ from differentialdynamicprogramming_jl_tpu.models.pendcart import (
     pendcart_derivs_tiles_so, pendcart_packed_derivs, default_x0)
 from differentialdynamicprogramming_jl_tpu.ops.pallas.autodiff_tiles import (
     autodiff_derivs_tiles, autodiff_packed_derivs)
+from differentialdynamicprogramming_jl_tpu.ops.pallas.pack import TILE
 from differentialdynamicprogramming_jl_tpu.solvers.batch import (
     ilqg_batch_lanes)
 from differentialdynamicprogramming_jl_tpu.solvers.ilqg import (
@@ -28,9 +29,9 @@ LIMS = ((-5.0, 5.0),)
 
 def _rand_tiles(n, m, key=0):
     k = jax.random.PRNGKey(key)
-    x = [jax.random.normal(jax.random.fold_in(k, i), (8, 128), DTYPE)
+    x = [jax.random.normal(jax.random.fold_in(k, i), TILE, DTYPE)
          for i in range(n)]
-    u = [jax.random.normal(jax.random.fold_in(k, 100 + i), (8, 128), DTYPE)
+    u = [jax.random.normal(jax.random.fold_in(k, 100 + i), TILE, DTYPE)
          for i in range(m)]
     return x, u
 
@@ -62,9 +63,9 @@ def test_packed_matches_analytic():
     x, u = _rand_tiles(4, 1)
     xl = jnp.stack(x)[None] * jnp.linspace(
         0.5, 1.5, 6, dtype=DTYPE).reshape(6, 1, 1, 1)
-    xl = xl.reshape(6, 4, 1, 8, 128)
-    ul = jnp.broadcast_to(jnp.stack(u)[None], (6, 1, 8, 128)
-                          ).reshape(6, 1, 1, 8, 128)
+    xl = xl.reshape((6, 4, 1) + TILE)
+    ul = jnp.broadcast_to(jnp.stack(u)[None], (6, 1) + TILE
+                          ).reshape((6, 1, 1) + TILE)
     np.testing.assert_allclose(
         np.asarray(pendcart_packed_derivs(spec)(xl, ul)),
         np.asarray(autodiff_packed_derivs(model)(xl, ul)),

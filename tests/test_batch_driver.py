@@ -1,9 +1,8 @@
 """Lane-layout batch driver (solvers/batch.py) vs the generic vmap driver —
 tiny shapes, interpret mode (compile time dominates; one thorough test).
 
-Full-scale equivalence (B=4096, T=500) is exercised on TPU hardware by
-bench.py / tools/bench_scaling.py; exact per-scenario cost/reason/iteration
-parity at larger sizes was additionally validated ad hoc (see commit logs).
+Full-scale agreement (B=4096, T=500) on a CUDA GPU is checked by
+chip_smoke.py (kernel parity and the card-only tests in tests/test_gpu.py).
 """
 import jax
 import jax.numpy as jnp
@@ -170,7 +169,7 @@ def test_batch_lanes_init_divergence_frozen():
     with the FROZEN initial rollout and a zero policy — not NaN. Before the
     round-3 fix, the unconditional `traj_n = fb.traj` re-rolled done lanes
     every iteration and the α=0 retrace computed K·(Inf−Inf) = NaN on their
-    Inf-bearing trajectories (ADVICE r2). Reference: the initial-rollout
+    Inf-bearing trajectories. Reference: the initial-rollout
     divergence guard exits with the initial trajectory and no policy
     (src/iLQG.jl:181-210)."""
     from differentialdynamicprogramming_jl_tpu.models.linear import (

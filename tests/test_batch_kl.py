@@ -116,8 +116,9 @@ def test_logdet_tiles_general_m():
     import numpy as np
     from differentialdynamicprogramming_jl_tpu.solvers.batch_kl import (
         _logdet_tiles)
+    from differentialdynamicprogramming_jl_tpu.ops.pallas.pack import TILE
     rng = np.random.default_rng(0)
-    T_, m, L = 5, 3, (1, 8, 128)
+    T_, m, L = 5, 3, (1,) + TILE
     A = rng.standard_normal((T_, *L, m, m)).astype(np.float32)
     S = np.einsum('t...ij,t...kj->t...ik', A, A) + 0.5 * np.eye(
         m, dtype=np.float32)
@@ -143,7 +144,7 @@ def test_batch_kl_pd_failure_flagged():
     """A scenario handed an indefinite previous Σ must come back flagged
     (``pd_failed``) and not ``satisfied``, on BOTH tiers, and the tiers must
     agree per scenario — before round 3 the lane tier silently clamped the
-    logdet (VERDICT r2 weak #4). Reference: Julia ``logdet`` raises a
+    logdet. Reference: Julia ``logdet`` raises a
     DomainError on indefinite input inside ``kl_div_wiki``
     (``src/klutils.jl:84``)."""
     dtype = jnp.float32
@@ -178,9 +179,33 @@ def test_batch_kl_pd_failure_flagged():
     bad[[2, 5]] = True
     np.testing.assert_array_equal(np.asarray(out.pd_failed), bad)
     np.testing.assert_array_equal(np.asarray(ref.pd_failed), bad)
-    # tier agreement on the termination flags (VERDICT r2 item 4)
+    # tier agreement on the termination flags
     np.testing.assert_array_equal(np.asarray(out.satisfied),
                                   np.asarray(ref.satisfied))
     assert not np.any(np.asarray(out.satisfied)[bad])
     # flagged lanes terminate immediately (first KL measurement)
     assert np.all(np.asarray(out.n_iters)[bad] == 1)
+
+
+def test_covariance_lanes_matches_forward_covariance():
+    """The lane-layout Σxx propagation (a plain lax.scan) equals the xx
+    block of ops/forward.forward_covariance per scenario (reference
+    forward_covariance, src/forward_pass.jl:37-56)."""
+    from differentialdynamicprogramming_jl_tpu.ops.forward import (
+        forward_covariance)
+    from differentialdynamicprogramming_jl_tpu.ops.pallas.pack import (
+        to_lanes, from_lanes)
+    from differentialdynamicprogramming_jl_tpu.policy import GaussianPolicy
+    from differentialdynamicprogramming_jl_tpu.solvers.batch_kl import (
+        covariance_lanes)
+    B_, T_, n, m = 5, 7, 3, 1
+    fx = 0.4 * jax.random.normal(jax.random.PRNGKey(0), (B_, T_, n, n),
+                                 jnp.float32) + jnp.eye(n, dtype=jnp.float32)
+    r1 = ((1.0, 0.2, 0.0), (0.2, 0.5, 0.1), (0.0, 0.1, 2.0))
+    got = from_lanes(covariance_lanes(
+        to_lanes(fx.reshape(B_, T_, n * n), B_), n=n, r1=r1), B_, (n, n))
+    pol = GaussianPolicy.zeros(T_, n, m, jnp.float32)
+    R1 = jnp.asarray(r1, jnp.float32)
+    ref = jax.vmap(lambda f: forward_covariance(f, R1, pol))(fx)
+    np.testing.assert_allclose(np.asarray(got), np.asarray(ref[..., :n, :n]),
+                               rtol=1e-5, atol=1e-5)

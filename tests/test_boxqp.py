@@ -118,7 +118,7 @@ def test_warm_start_converges_fast(key):
 
 
 def test_f32_dtype(key):
-    """f32 path (TPU throughput dtype) stays correct on well-conditioned QPs."""
+    """f32 path (the lane-tier dtype) stays correct on well-conditioned QPs."""
     H, g, x0 = rand_qp(key, 4, dtype=jnp.float32)
     out = boxqp(H, g, -jnp.ones(4, jnp.float32), jnp.ones(4, jnp.float32), x0)
     assert out.result >= 1

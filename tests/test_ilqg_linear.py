@@ -148,7 +148,7 @@ def _fixed_lti_spec(dtype, T):
     9-26) generated in NumPy f64 and cast, so every dtype solves the SAME
     problem (jax.random draws differ between f32 and f64). MUST stay in
     sync with tools/probe_f32_drift._lti_spec (same rng(7) construction):
-    this test pins the problem whose pre-fix stall BASELINE.md records."""
+    this test pins the problem whose pre-fix f32 stall that tool showed."""
     import scipy.linalg
     from differentialdynamicprogramming_jl_tpu.models.linear import LTISpec
     n, m, h = 10, 2, 0.01
@@ -170,9 +170,9 @@ def test_f32_exits_on_cost_convergence():
     clean convergence exit at the f32 noise floor instead of stalling
     there and escalating λ to λmax. On this pinned problem the pre-fix
     behavior was reason 3 (λ>λmax) after ~41 total iterations vs ~14
-    accepted (measured via tools/probe_f32_drift.py, BASELINE.md round
-    3); post-fix it exits reason 2 with no rejection tail, at the f64
-    optimum of the same problem."""
+    accepted (measured via tools/probe_f32_drift.py); post-fix it exits
+    reason 2 with no rejection tail, at the f64 optimum of the same
+    problem."""
     T = 1000
     from differentialdynamicprogramming_jl_tpu.solvers.ilqg import (
         default_alphas)

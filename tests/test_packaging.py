@@ -1,5 +1,5 @@
 """Packaging smoke tests — the framework must install and import outside
-the repo root (VERDICT r4 missing item 1; reference install metadata:
+the repo root (reference install metadata:
 ``/root/reference/Project.toml:1-14``)."""
 import os
 import subprocess

@@ -2,10 +2,10 @@
 
 The backward kernel (ops/pallas/backward_kernel.py) and forward kernel
 (ops/pallas/forward_kernel.py) are validated against the XLA reference path
-(ops/backward.py, ops/forward.py) on small shapes; compiled-vs-interpret
-bit-exactness on real TPU hardware is covered by tools/bench_backward_kernel
-runs. Shapes are kept tiny — interpret mode executes the unrolled kernel
-eagerly and compile time grows with n⁴·K_T.
+(ops/backward.py, ops/forward.py) on small shapes; the compiled Triton
+kernels are checked against the interpreter on the card by tests/test_gpu.py
+and at full size by chip_smoke.py. Shapes are kept tiny — interpret mode
+compile time grows with n⁴·k_t.
 """
 import jax
 import jax.numpy as jnp
@@ -340,11 +340,11 @@ def test_backward_kernel_emission_modes(pend):
 
 @pytest.mark.parametrize("rr_min", [0.0, 0.6])
 def test_fused_linesearch_matches_two_phase(pend, rr_min):
-    """linesearch_lanes (one-launch phase-A totals + in-VMEM accept +
-    phase-B re-roll, solvers/batch.py STEP 3) must equal the pre-fusion
+    """linesearch_lanes (one-launch per-α totals + in-register accept +
+    accepted-α re-roll, solvers/batch.py STEP 3) must equal the pre-fusion
     two-phase expression (forward_lanes totals -> XLA accept glue ->
     forward_lanes re-roll) bit-for-bit: the fusion moved the accept
-    decision (src/iLQG.jl:269-280) into the kernel's pass boundary without
+    decision (src/iLQG.jl:269-280) into the kernel, between its two loops, without
     touching any arithmetic. rr_min=0.6 forces the ladder to descend past
     rejected candidates; half the lanes have allow=0 (masked out)."""
     spec, problem, lims, x0s, ro, d = pend

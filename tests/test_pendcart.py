@@ -160,7 +160,7 @@ def test_derivs_schemes_agree(derivs):
 
 
 def test_f32_matches_f64_solution():
-    """TPU-throughput dtype: f32 solve lands on the same optimum basin with
+    """Lane-tier dtype: f32 solve lands on the same optimum basin with
     comparable cost."""
     r64 = solve(lims_val=10.0, max_iter=300)
     r32 = solve(lims_val=10.0, dtype=jnp.float32, max_iter=300)

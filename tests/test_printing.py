@@ -38,7 +38,7 @@ def test_ilqg_iteration_table_and_exit(capfd):
 def test_iteration_cap_exit_message(capfd):
     """reason 0 (while_loop trip cap hit before max_iter accepted
     iterations) must print an explicit exit line — the reference always
-    prints one of its exit messages; silence here was ADVICE r2 #4."""
+    prints one of its exit messages."""
     spec = random_lti(jax.random.PRNGKey(1), n=4, m=2, T=40,
                       dtype=jnp.float64)
     prob = make_lti_problem(spec, 40)

@@ -69,8 +69,7 @@ def lane_batch():
 @pytest.mark.smoke
 def test_sharded_lanes_matches_single_device(lane_batch):
     """The flagship Pallas lane tier under shard_map (8 devices, interpret
-    mode) produces the same solves as the single-device lane driver —
-    VERDICT r1 item 2 (the sharded lane path previously had zero tests)."""
+    mode) produces the same solves as the single-device lane driver."""
     from differentialdynamicprogramming_jl_tpu.solvers.ilqg import (
         default_alphas)
     from differentialdynamicprogramming_jl_tpu.solvers.batch import (
@@ -118,8 +117,7 @@ def test_output_is_sharded(problem_batch):
 
 def test_sharded_kl_lanes_matches_single_device():
     """The GPS/KL lane tier under shard_map (8 devices, interpret mode)
-    produces the same solves as the single-device ilqgkl_batch_lanes —
-    VERDICT r2 item 1 (the KL lane tier previously could not shard)."""
+    produces the same solves as the single-device ilqgkl_batch_lanes."""
     from differentialdynamicprogramming_jl_tpu.models.pendcart import (
         PendCartSpec, make_pendcart_problem, default_x0, pendcart_lanes,
         pendcart_derivs_tiles)

@@ -1,4 +1,4 @@
-"""Warm-start / resume on the XLA batched tier (VERDICT r3 item 6):
+"""Warm-start / resume on the XLA batched tier:
 ``ilqg_batched`` / ``ilqg_sharded`` accept pre-rolled trajectories +
 ``cost0`` and the (λ, dλ, accepted) resume counters, mirroring the lane
 tier's entries — a chunked solve composes to the uninterrupted one

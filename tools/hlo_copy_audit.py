@@ -6,13 +6,13 @@ kernel output landing in a carry position gets a materializing ``copy``.
 These copies are invisible in the Python code and missing from naive
 traffic arithmetic — this harness lowers the driver at toy shapes on CPU
 and attributes every big copy op to its HLO computation, so driver-level
-per-iteration copy traffic can be compared across worktrees (see
-BASELINE.md "While-loop copy audit").
+per-iteration copy traffic can be compared across checkouts.
 
 Caveat: CPU interpret-mode Pallas inlines each kernel as its own XLA loop
 region, inflating the total count — only copies in the MAIN driver loop
 body (the region containing the trajectory-shaped carries) are meaningful
-for the TPU pipeline; kernel-internal regions do not exist there.
+for the compiled driver; kernel-internal regions do not exist there
+(a compiled kernel is one custom call).
 
 Usage: python tools/hlo_copy_audit.py [--kl] <repo_root> [<repo_root2> ...]
 (default audits the iLQG lane driver; --kl audits the GPS/KL lane driver)
@@ -43,7 +43,7 @@ def _report(root: str, txt: str, carried_shapes) -> None:
     # position's input); copies of pad/fusion outputs at the same shape are
     # interpret-mode Pallas operand prep (e.g. the forward kernel's
     # emit_traj stream matches the carried trajectory shape exactly) and
-    # must NOT be counted — they have no TPU counterpart
+    # must NOT be counted — they have no compiled counterpart
     carried = [r for r in in_body
                if r[1] in carried_shapes
                and "copy(%get-tuple-element" in r[3]]
@@ -80,7 +80,9 @@ def audit(root: str) -> None:
     tiles = pendcart_derivs_tiles(spec)
     cfg = ILQGConfig(alphas=default_alphas(0.2, -3.0, 3), reg_type=2,
                      lam_max=1e15, max_iter=2, iter_cap=3)
-    B, T = 8, 6
+    # eight lane tiles: the carried streams clear the 100 kB line of _report
+    from differentialdynamicprogramming_jl_tpu.ops.pallas.pack import W
+    B, T = 8 * W, 6
     x0s = default_x0(jnp.float32)[None, :].repeat(B, 0)
     u0s = jnp.zeros((B, T, 1), jnp.float32)
     lo = _ilqg_batch_lanes_jit.lower(
@@ -89,9 +91,9 @@ def audit(root: str) -> None:
         lam0=None, dlam0=None, accepted0=None,
         max_steps=jnp.asarray(2, jnp.int32),
         kt_backward=2, kt_forward=2, record_trace=False, interpret=True)
-    # carried trajectory stream (T, n+m+1, nB, 8, 128): the traj /
+    # carried trajectory stream (T, n+m+1, nB, 1, W): the traj /
     # traj_bwd carries — the rotation copy shows up at exactly this shape
-    _report(root, lo.compile().as_text(), {f"{T},6,1,8,128"})
+    _report(root, lo.compile().as_text(), {f"{T},6,{B // W},1,{W}"})
 
 
 def audit_kl(root: str) -> None:
@@ -113,7 +115,8 @@ def audit_kl(root: str) -> None:
     from differentialdynamicprogramming_jl_tpu.solvers.ilqgkl import (
         ILQGKLConfig)
 
-    B, T = 8, 10
+    from differentialdynamicprogramming_jl_tpu.ops.pallas.pack import W
+    B, T = 8 * W, 10
     dtype = jnp.float32
     spec = PendCartSpec()
     problem = make_pendcart_problem(spec, derivs="euler", dtype=dtype)
@@ -136,9 +139,9 @@ def audit_kl(root: str) -> None:
         d.fx, jnp.sum(ro.cost, -1), lims=None, lims_batch=None, cfg=cfg,
         r1=None, kt=4, max_steps=jnp.int32(cfg.max_iter),
         it0=jnp.zeros((), jnp.int32), record_trace=False, interpret=True)
-    # policy-emission stream (T, m + m·n + 2m² = 7, nB, 8, 128): the shape
-    # the pre-round-3 driver carried as `bo` (now replaced by eta_used)
-    _report(root, lo.compile().as_text(), {f"{T},7,1,8,128"})
+    # policy-emission stream (T, m + m·n + 2m² = 7, nB, 1, W): the shape
+    # an earlier driver carried as `bo` (now replaced by eta_used)
+    _report(root, lo.compile().as_text(), {f"{T},7,{B // W},1,{W}"})
 
 
 if __name__ == "__main__":

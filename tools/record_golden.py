@@ -1,6 +1,6 @@
 """Record golden regression fixtures from the INDEPENDENT NumPy oracle.
 
-Provenance (VERDICT r1 weak #7): the fixtures are produced by
+Provenance: the fixtures are produced by
 ``tests/oracle.py`` — the eager-NumPy reimplementation of the reference's
 exact control flow that shares no code with the JAX framework — so
 ``tests/test_golden.py`` catches a hypothetical shared bug in the JAX path,
